@@ -50,12 +50,13 @@ def build_parser(prog="jx grm") -> argparse.ArgumentParser:
                    "{prefix}.{tag}.group_{gid}.npy per group (rows = the "
                    "group's samples x all samples)")
     o.add_argument("--distributed", action="store_true",
-                   help="multi-host build: initialize jax.distributed "
-                        "(env-driven on TPU pods, or JX_DIST_COORDINATOR/"
-                        "JX_DIST_NPROCS/JX_DIST_PROC_ID), read only this "
-                        "host's SNP slice, and merge partial GRMs across "
-                        "hosts (parallel.distributed.distributed_grm); "
-                        "only process 0 writes outputs")
+                   help="multi-process build: initialize jax.distributed "
+                        "from JX_DIST_COORDINATOR/JX_DIST_NPROCS/"
+                        "JX_DIST_PROC_ID (+ JX_DIST_LOCAL_DEVICES when "
+                        "processes share a host), read only this "
+                        "process's SNP slice, and merge partial GRMs "
+                        "(parallel.distributed.distributed_grm); a failed "
+                        "init is an error; only process 0 writes outputs")
     p.add_argument("--stage-timing", action="store_true",
                    help="print a load/compute/write stage breakdown "
                         "(reference --stage-timing)")
@@ -167,17 +168,8 @@ def main(argv=None) -> int:
 
         from janusx_tpu.parallel import distributed as dist
 
-        # NOTE: under a multi-process launcher dist.initialize must run
-        # before jax touches the backend; the env-variable path below
-        # covers torchrun-style launchers, TPU pods need no args
-        coord = os.environ.get("JX_DIST_COORDINATOR")
-        dist.initialize(
-            coordinator=coord,
-            num_processes=(int(os.environ["JX_DIST_NPROCS"])
-                           if coord else None),
-            process_id=(int(os.environ["JX_DIST_PROC_ID"])
-                        if coord else None),
-        )
+        # must run before jax touches the backend
+        dist.initialize_from_env()
         K = dist.distributed_grm(pg, method=args.method)
         if jax.process_index() != 0:
             return 0  # only the lead process writes outputs

@@ -25,7 +25,7 @@ _METHOD_FLAGS = [
 
 
 def build_parser(prog="jx gs") -> argparse.ArgumentParser:
-    p = argparse.ArgumentParser(prog=prog, description="Genomic selection (TPU-native)")
+    p = argparse.ArgumentParser(prog=prog, description="Genomic selection")
     common.add_genotype_args(p)
     common.add_pheno_args(p)
     m = p.add_argument_group("Models")

@@ -12,7 +12,7 @@ def build_parser(prog="jx gwas", dev: bool = False) -> argparse.ArgumentParser:
         # hidden flags surface with `-h -dev` (reference show_dev_help)
         return text if dev else argparse.SUPPRESS
 
-    p = argparse.ArgumentParser(prog=prog, description="GWAS scans (TPU-native)")
+    p = argparse.ArgumentParser(prog=prog, description="GWAS scans")
     common.add_genotype_args(p)
     common.add_pheno_args(p)
     m = p.add_argument_group("Models (select at least one)")

@@ -64,7 +64,7 @@ _ALIASES = {"simulation": "sim", "adamixture": "fastpop"}
 
 def _help() -> str:
     lines = [
-        f"janusx-tpu {__version__} — TPU-native GWAS + genomic selection",
+        f"janusx-tpu {__version__} — accelerator-native GWAS + genomic selection",
         "",
         "usage: jx <module> [options]",
         "",

@@ -8,7 +8,8 @@ diag_ridge=1e-6 on the GRM diagonal before decomposition).
 Backends:
 - "host": scipy.linalg.eigh in float64 (LAPACK dsyevd) — default for
   n <= ~20k, mirrors the reference's accuracy; U then ships to device once.
-- "device": jnp.linalg.eigh — useful when the GRM already lives in HBM.
+- "device": jnp.linalg.eigh — useful when the GRM already lives in
+  device memory.
 
 Rotation convention: K = U diag(S) U^T with S ascending; rotated vectors
 are U^T v; rotated SNP-major genotype blocks are G @ U (device matmul).
@@ -50,7 +51,7 @@ def eigh_grm(
     if backend is None:
         from janusx_tpu import config
 
-        backend = config.knob("JX_TPU_EIGH_BACKEND")
+        backend = config.choice_knob("JX_TPU_EIGH_BACKEND", ("host", "device"))
     K = np.asarray(K, dtype=np.float64)
     if diag_ridge:
         K = K + diag_ridge * np.eye(K.shape[0])
@@ -66,5 +67,5 @@ def eigh_grm(
 def rotate_genotype_block(
     g_block: jax.Array, U: jax.Array, precision=jax.lax.Precision.HIGHEST
 ) -> jax.Array:
-    """Rotate a decoded SNP-major block: (B, n) @ (n, n) -> (B, n) on MXU."""
+    """Rotate a decoded SNP-major block: (B, n) @ (n, n) -> (B, n) on device."""
     return jnp.dot(g_block, U, precision=precision)

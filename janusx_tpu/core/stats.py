@@ -73,8 +73,8 @@ def chi2_sf_df1_jnp(x):
 def pwald_from_beta_se_device(beta, se):
     """Device Wald p with the reference sanitize rules (f64 lanes).
 
-    The erfc runs in f32 (f64 erfc is software-emulated on TPU); the
-    returned p is f64. For |z| where p underflows f32 (~1e-38, i.e.
+    The erfc runs in f32 (the f32/f64 split predates the H100 port; its
+    cost there is not measured); the returned p is f64. For |z| where p underflows f32 (~1e-38, i.e.
     -log10 p > 37.9) the host fallback recomputes exactly — callers keep
     the numpy path for lanes with p at the f32 floor.
     """

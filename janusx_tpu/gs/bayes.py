@@ -9,7 +9,7 @@ prob_in=0.5, counts=10):
     BayesB  : δ_j ~ Bern(π) spike-and-slab over the BayesA hierarchy
     BayesCπ : shared slab variance, π ~ Beta-Binomial posterior
 
-TPU-native design (replaces the reference's rayon/BLAS per-marker sweep,
+Device design (replaces the reference's rayon/BLAS per-marker sweep,
 bayes.rs bayesb_core_impl — exact same Markov chain, restructured for a
 systolic machine):
 

@@ -634,7 +634,7 @@ def _run_single_method(cfg, method, K, Xml, pg, denom, y, train, test, trait,
         # folds are independent host-only work (LAPACK eigh + Brent REML,
         # both GIL-releasing) — run them concurrently. The per-fold eigh
         # chain IS the CV wall clock: 5x dsyevd(1128) measures 1.38 s
-        # (0.71 s in f32) on this 4-vCPU box, so the knob JX_TPU_GS_EIGH32
+        # (0.71 s in f32) on a 4-vCPU host, so the knob JX_TPU_GS_EIGH32
         # trades the f64 spectrum for ssyevd when CV speed matters more
         # than the last ~1e-5 of lambda precision. A partitioned-inverse
         # one-eigh variant was measured 4x SLOWER (Brent needs ~30

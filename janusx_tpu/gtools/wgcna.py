@@ -3,9 +3,9 @@
 Reference: /root/reference/python/janusx/gtools/wgcna.py (cor :69,
 adj :94, tom :201, cluster :248 — numpy loops + dynamicTreeCut).
 
-TPU mapping: every heavy step is a dense gene×gene matmul — the
+Device mapping: every heavy step is a dense gene×gene matmul — the
 correlation Gram, the scale-free-fit sweep, and the TOM numerator
-A@A all run as single f32-HIGHEST MXU matmuls under jit instead of
+A@A all run as single f32-HIGHEST device matmuls under jit instead of
 the reference's chunked numpy. Clustering (scipy hierarchy) stays on
 host; dynamicTreeCut is optional with a fcluster fallback."""
 
@@ -18,7 +18,7 @@ import numpy as np
 
 def _device_corr(expr: np.ndarray) -> np.ndarray:
     """Gene-gene Pearson correlation on device: standardize columns, one
-    (g, n) @ (n, g) MXU matmul."""
+    (g, n) @ (n, g) device matmul."""
     import jax
     import jax.numpy as jnp
 

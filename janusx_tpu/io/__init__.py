@@ -1,6 +1,6 @@
 """Genotype / phenotype IO: VCF, PLINK, HapMap, TXT readers and writers.
 
-TPU-first equivalents of the reference's Rust IO layer
+Device-first equivalents of the reference's Rust IO layer
 (/root/reference/src/io/gfcore.rs, gfreader.rs, gload.rs): all readers
 produce SNP-major int8 dosage chunks (0/1/2, -1 missing) which are QC'd,
 minor-allele-flipped and packed to 2-bit device buffers by

@@ -354,7 +354,7 @@ def prepare_packed(
 ) -> PackedGenotypes:
     """One-pass load + QC + minor-allele flip + 2-bit pack of any input.
 
-    The TPU-native analog of the reference's ``prepare_bed_2bit_packed``
+    The device analog of the reference's ``prepare_bed_2bit_packed``
     (src/io/gfreader.rs:7029). PLINK input takes the byte-LUT fast path
     (never unpacked); other formats stream through int8 chunks.
     """

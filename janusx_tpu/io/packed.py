@@ -1,13 +1,13 @@
 """QC + 2-bit packing: the one-pass prepare stage.
 
-TPU-native equivalent of the reference's ``prepare_bed_2bit_packed``
+Device equivalent of the reference's ``prepare_bed_2bit_packed``
 (/root/reference/src/io/gfreader.rs:7029; filter semantics
 gfreader.rs:1830-1872): one pass over SNP-major dosage data applying
 missing-rate / heterozygosity / MAF filters, flipping rows so allele1 is
 always the minor allele, and emitting a 2-bit packed buffer plus per-SNP
 stats (af, missing rate, mean dosage) that every device kernel consumes.
 
-The packed buffer is the array that ships to TPU HBM: 16x smaller than
+The packed buffer is the array that ships to device memory: 16x smaller than
 f32, decoded on device (janusx_tpu.ops.decode).
 """
 

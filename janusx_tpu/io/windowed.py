@@ -1,6 +1,6 @@
 """Windowed low-memory genotype access (biobank-scale m x n).
 
-The TPU-native analog of the reference's mmap-windowed BED layer
+The device analog of the reference's mmap-windowed BED layer
 (/root/reference/src/io/gload.rs:1-12 ``WindowedBedMatrix`` /
 ``BedMmapMatrix``): the packed genotype matrix never lives in host RAM.
 Per-SNP QC statistics (one streaming pass), the QC keep/flip decisions and

@@ -5,9 +5,9 @@ Functional re-design of the reference's `-algwas` route
 selection — 64 path steps, λ_min ratio 1e-3, standardized design — then a
 stage-2 conditional scan).
 
-TPU mapping: the reference's active-set coordinate-descent path becomes a
+Device mapping: the reference's active-set coordinate-descent path becomes a
 FISTA proximal-gradient path run entirely on device — one jit, lax.scan
-over λ steps with warm starts; each inner iteration is two (m, n) MXU
+over λ steps with warm starts; each inner iteration is two (m, n) device
 matmuls. EBIC(γ=0.5) selects the path point; stage 2 re-scans all markers
 with the selected set as covariates (pseudo-QTN p-values from their joint
 model, as in FarmCPU).
@@ -25,7 +25,7 @@ import numpy as np
 from janusx_tpu import config
 from janusx_tpu.io.packed import PackedGenotypes
 from janusx_tpu.models.lm import lm_scan
-from janusx_tpu.models.farmcpu import _decode_rows, _qtn_pvalues
+from janusx_tpu.models.farmcpu import _decode_rows, _qtn_tests
 from janusx_tpu.models.scan_common import ScanResult
 
 PATH_STEPS = 64
@@ -204,7 +204,8 @@ def algwas_scan(
     if len(selected) and pg_qtn is None:
         # QTN rows get conditional refit stats only when they live in the
         # scanned panel (indices refer to the QTN panel otherwise)
-        res.pwald[selected] = _qtn_pvalues(pg, y, covariates, selected)
+        res.beta[selected], res.se[selected], res.pwald[selected] = (
+            _qtn_tests(pg, y, covariates, selected))
     return AlgwasResult(
         result=res, selected=selected, ebic_path=ebic,
         lambda_path=np.asarray(lambdas, np.float64),

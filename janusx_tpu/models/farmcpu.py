@@ -204,7 +204,7 @@ def farmcpu_scan(
         res = lm_scan(pgq, y, cov, block=block, mesh=mesh)
         pvals = res.pwald.copy()
         if len(qtns):
-            pvals[qtns] = _qtn_pvalues(pgq, y, covariates, qtns)
+            pvals[qtns] = _qtn_tests(pgq, y, covariates, qtns)[2]
         if loop == 0 and np.nanmin(pvals) >= p_threshold:
             log.info("farmcpu: no marker passes threshold %.3g", p_threshold)
             if pg_qtn is not None:
@@ -255,8 +255,8 @@ def farmcpu_scan(
         cov = cov_q if cov is None else np.concatenate([cov, cov_q], axis=1)
     final = lm_scan(pg, y, cov, block=block, mesh=mesh)
     if len(qtns) and pg_qtn is None:
-        qp = _qtn_pvalues(pg, y, covariates, qtns)
-        final.pwald[qtns] = qp
+        final.beta[qtns], final.se[qtns], final.pwald[qtns] = _qtn_tests(
+            pg, y, covariates, qtns)
     return FarmcpuResult(result=final, qtns=qtns, loops=loop + 1,
                          loop_sets=loop_sets)
 
@@ -271,9 +271,11 @@ def _decode_rows(pg: PackedGenotypes, idx: np.ndarray) -> np.ndarray:
     return pg.take_snps(idx).centered()
 
 
-def _qtn_pvalues(pg, y, covariates, qtns) -> np.ndarray:
-    """p-values of the pseudo-QTN coefficients in the joint background model
-    (rMVP behavior: QTN rows report their covariate t-tests)."""
+def _qtn_tests(pg, y, covariates, qtns) -> tuple:
+    """(beta, se, p) of the pseudo-QTN coefficients in the joint background
+    model (rMVP behavior: QTN rows report their covariate t-tests). A scan
+    conditioned on a QTN has no defined effect for the QTN itself: its
+    projected g'Mg is rounding residue."""
     Zq = _decode_rows(pg, qtns)
     n = pg.n
     X = design_matrix(n, covariates)
@@ -281,7 +283,8 @@ def _qtn_pvalues(pg, y, covariates, qtns) -> np.ndarray:
     k = Xf.shape[1]
     df = n - k
     if df <= 0:
-        return np.ones(len(qtns))
+        nan = np.full(len(qtns), np.nan)
+        return nan, nan, np.ones(len(qtns))
     XtX = Xf.T @ Xf + 1e-10 * np.eye(k)
     Cinv = np.linalg.inv(XtX)
     beta = Cinv @ (Xf.T @ y)
@@ -290,7 +293,8 @@ def _qtn_pvalues(pg, y, covariates, qtns) -> np.ndarray:
     se = np.sqrt(np.maximum(sigma2 * np.diag(Cinv), 1e-300))
     t = beta / se
     pv = student_t_p_two_sided(t, df)
-    return pv[X.shape[1]:]
+    q = slice(X.shape[1], None)
+    return beta[q], se[q], pv[q]
 
 
 def _corr_matrix(pg, idx: np.ndarray) -> np.ndarray:
@@ -429,7 +433,7 @@ def farmcpu_unified_scan(
         res = lm_scan(pg, y, cov, block=block, mesh=mesh)
         femp = res.pwald.copy()
         if len(qtns):
-            femp[qtns] = _qtn_pvalues(pg, y, covariates, qtns)
+            femp[qtns] = _qtn_tests(pg, y, covariates, qtns)[2]
         masked = femp.copy()
         if seen:
             masked[np.fromiter(seen, dtype=np.int64)] = 1.0

@@ -18,9 +18,9 @@ so the complement never needs its eigenvectors — only raw-minus-rotated
 Gram corrections (the reference's U2 projections, fastlmm_lowrank.rs
 precompute_u2_base/precompute_u2_snp, collapse into these corrections).
 
-TPU mapping: instead of the reference's rayon per-SNP scalar Brent, a
+Device mapping: instead of the reference's rayon per-SNP scalar Brent, a
 whole SNP block shares one fine log10-λ grid — per-SNP grid pieces are
-(B, k) @ (k, G) MXU matmuls plus rank-1 correction outer products, and
+(B, k) @ (k, G) device matmuls plus rank-1 correction outer products, and
 λ* selection reuses the Schur-complement closed form of the full-rank
 resident scan (core.reml.grid_argmin_schur). beta/se are then evaluated
 at λ* per lane. Genetic models (add/dom/rec/het) transform the decoded
@@ -504,7 +504,7 @@ def _lr_block(packed, cs: _LrConsts, sh: GridShared, n: int,
     cgX = gX.astype(f64) - jnp.dot(Gr, cs.Xr, precision=hp).astype(f64)
     cgy = gy.astype(f64) - jnp.dot(Gr, cs.yr, precision=hp).astype(f64)
     cgg = gg.astype(f64) - jnp.sum(Gr * Gr, axis=-1).astype(f64)
-    # (B, G) grid pieces: ONE stacked ((2+p)B, k) @ (k, G) MXU matmul
+    # (B, G) grid pieces: ONE stacked ((2+p)B, k) @ (k, G) device matmul
     # (same fusion as core.reml.lmm_grid_scan_with) + rank-1 complement
     # corrections
     wT = sh.w32.T  # (k, G)
@@ -540,8 +540,8 @@ def _lr_scan_resident(pk, cs: _LrConsts, sh: GridShared, n: int,
     """Whole-scan resident form: lax.scan over pre-blocked (nblk, B, K)
     packed rows, one dispatch, one stacked (5, nblk, B) fetch — the
     low-rank twin of models.lmm._lmm_scan_resident (per-block python
-    dispatch costs ~ms of round-trips per block on remote-attached
-    TPUs, which dominates at chromosome-scale m)."""
+    dispatch costs ~ms of round-trips per block, which adds up at
+    chromosome-scale m)."""
 
     def body(_, pkb):
         return None, _lr_block(pkb, cs, sh, n, model, with_ml)
@@ -634,13 +634,10 @@ def fastlmm_scan(
     sh = _sh
     cs = _cs
     n, m = pg.n, pg.m
-    block = min(block, m) if m else block
+    from janusx_tpu.parallel.mesh import mesh_step
     from janusx_tpu.utils import devcache
 
-    if mesh is not None:
-        # every device needs the same whole blocks: pad block to a
-        # multiple of the mesh size
-        block = -(-block // mesh.devices.size) * mesh.devices.size
+    block = mesh_step(min(block, m) if m else block, mesh)
     m_pad = -(-m // block) * block
     nblk = m_pad // block
     pk = devcache.device_packed_blocks(pg, (nblk, block), mesh=mesh)

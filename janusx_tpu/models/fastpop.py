@@ -1,6 +1,6 @@
 """FastPop / ADMIXTURE-style ancestry decomposition.
 
-TPU-native re-design of the reference's adamixture engine
+Device re-design of the reference's adamixture engine
 (/root/reference/src/stats/adamixture.rs: EM + Adam updates of P/Q over
 streamed BED log-likelihood, RSVD init, CV error;
 python/janusx/adamixture/core.py train_adamixture).
@@ -13,7 +13,7 @@ Both reference solvers run as single jitted device loops over 2-bit
 packed SNP blocks (missing genotypes contribute zero):
 
 - "adam-em" (the reference default): each iteration computes the closed-
-  form EM target (p_em, q_em) with MXU matmul contractions and feeds the
+  form EM target (p_em, q_em) with device matmul contractions and feeds the
   EM delta through Adam moments — the reference's Adam-accelerated-EM
   update (adamixture.rs em_step_packed_f32_impl /
   adam_optimize_packed_*_impl), with clip-to-[1e-5,1-1e-5], Q-row
@@ -138,7 +138,7 @@ def _em_targets_and_loglik(p, q, pk_blocks, n: int):
     q_em = q·t / (2·n_obs) (the caller divides and renormalizes). Missing
     cells (code 3, incl. SNP-row padding) contribute zero everywhere; a
     fully padded row has denom 0 and keeps p_em = p. All contractions are
-    (B,n)x(n,K) / (B,n)^T x (B,K) MXU matmuls."""
+    (B,n)x(n,K) / (B,n)^T x (B,K) device matmuls."""
 
     def body(carry, xs):
         t_acc, ll_acc = carry

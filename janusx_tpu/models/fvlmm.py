@@ -8,7 +8,7 @@ fvlmm.rs:1-8):
     P = W - W X (X'WX)^{-1} X'W,  W = diag(1/(s_i + λ))
     pwald = 2*Phi_bar(|beta/se|)  (fvlmm.rs:1774-1778)
 
-Device step: decode block -> rotate via U (f32 MXU matmul) -> two small
+Device step: decode block -> rotate via U (f32 device matmul) -> two small
 matmuls against precomputed P-pieces. Everything after rotation is f64.
 """
 
@@ -27,11 +27,12 @@ from janusx_tpu.core.spectral import SpectralBasis
 from janusx_tpu.io.packed import PackedGenotypes
 from janusx_tpu.models.scan_common import ScanResult, finalize_invalid
 from janusx_tpu.ops import decode
+from janusx_tpu.parallel.mesh import mesh_step
 
 
 def _fvlmm_scan_core(pk, mn, U32, w, X, Cw, Py, n: int):
     """Whole fixed-λ scan body on pre-blocked (nblk, B, K) packed rows
-    (lax.scan over blocks, f32 MXU grams — weights are shared, so
+    (lax.scan over blocks, f32 grams — weights are shared, so
     everything is matmuls).
 
     w: (n,) weights; X: (n, p) rotated design; Cw = (X'WX + ridge)^{-1};
@@ -132,9 +133,7 @@ def fvlmm_scan(
 
     U32 = devcache.to_device(basis.U, jnp.float32)
     m = pg.m
-    block = min(block, m)
-    if mesh is not None:
-        block = -(-block // mesh.devices.size) * mesh.devices.size
+    block = mesh_step(min(block, m), mesh)
     m_pad = -(-m // block) * block
     nblk = m_pad // block
     pk = devcache.device_packed_blocks(pg, (nblk, block), mesh=mesh)
@@ -281,9 +280,7 @@ def fvlmm_scan_multi(
 
     U32 = devcache.to_device(basis.U, jnp.float32)
     m = pg.m
-    block = min(block, m)
-    if mesh is not None:
-        block = -(-block // mesh.devices.size) * mesh.devices.size
+    block = mesh_step(min(block, m), mesh)
     m_pad = -(-m // block) * block
     nblk = m_pad // block
     pk = devcache.device_packed_blocks(pg, (nblk, block), mesh=mesh)

@@ -1,13 +1,13 @@
 """GARFIELD: logic-rule (epistasis) association search.
 
-TPU-native re-design of the reference's GARFIELD engine
+Device re-design of the reference's GARFIELD engine
 (/root/reference/src/garfield/: packed 0/1 homozygote bitsets, AND/XOR
 beam search with negation, correlation/MCC scoring, permutation null
 calibration, GRM residualization — ~38k LoC of Rust/Metal).
 
 Redesign: binary SNP features (hom-alt indicators) are rows of a 0/1
 matrix B (m, n). Scoring every AND/AND-NOT/XOR extension of a beam seed
-against every marker reduces to two MXU matmuls:
+against every marker reduces to two device matmuls:
 
     num[s, j]  = (b_s ∘ t) · b_j     -> (S, n) @ (n, m)
     cnt[s, j]  = b_s · b_j           -> (S, n) @ (n, m)

@@ -28,6 +28,7 @@ from janusx_tpu.io.packed import PackedGenotypes
 from janusx_tpu.models.lm import design_matrix, student_t_p_two_sided
 from janusx_tpu.models.scan_common import ScanResult, iter_blocks, pad_rows
 from janusx_tpu.ops import decode
+from janusx_tpu.parallel.mesh import mesh_step
 
 
 @partial(jax.jit, static_argnames=("n",))
@@ -184,9 +185,7 @@ def gxe_scan(
     yMy = float(y_use @ My)
 
     m = pg.m
-    block = min(block, m)
-    if mesh is not None:
-        block = -(-block // mesh.devices.size) * mesh.devices.size
+    block = mesh_step(min(block, m), mesh)
     packed = decode.pad_packed_cols(pg.packed)
     Xd = jnp.asarray(X_use)
     Cd = jnp.asarray(Cinv)

@@ -12,8 +12,8 @@ splitmix64(seed, j); the sketch is H[b] = sum_{j: b_j=b} s_j z_j with
 z the centered (or standardized) genotype row. E[H H'] equals the GRM
 numerator, so GS models fit on the D-dimensional H instead of m markers.
 
-TPU mapping: per SNP block, the (B, D) signed one-hot matrix S turns the
-bucket scatter into H += S^T C — two MXU matmuls per block instead of the
+Device mapping: per SNP block, the (B, D) signed one-hot matrix S turns the
+bucket scatter into H += S^T C — two device matmuls per block instead of the
 reference's rayon per-bucket row loops.
 """
 
@@ -66,7 +66,7 @@ def hash_bucket_sign(seed: int, row_idx: np.ndarray, n_buckets: int):
 @partial(jax.jit, static_argnames=("n_buckets",))
 def _hash_accum(pk, mn, iv, bucket, sign, n_buckets: int):
     """Streamed sketch: per block decode (B, n) + signed one-hot (B, D)
-    -> H += S^T C on the MXU. Dropped rows carry sign 0."""
+    -> H += S^T C on the device. Dropped rows carry sign 0."""
     hi = jax.lax.Precision.HIGHEST
 
     def step(acc, xs):

@@ -98,7 +98,7 @@ def _he_stream_pass(pk, mn, iv, V):
     """One streamed pass over pre-blocked packed SNP data: returns
     T = sum_b C_b^T (C_b V) and colsq[s] = sum_b sum_j C_b[j, s]^2 (the
     per-sample kernel diagonal numerators), never forming the (n, n)
-    kernel. C_b decodes on device; both matmuls ride the MXU (reference
+    kernel. C_b decodes on device; both matmuls run on the device (reference
     analog: streamed GRM.v products in src/stats/he.rs)."""
     import jax
     import jax.numpy as jnp
@@ -137,7 +137,7 @@ def he_streamed(
     """Haseman-Elston h² without ever forming the (n, n) GRM.
 
     Streams K.v products from packed SNP blocks (on-device decode +
-    MXU matmuls) and estimates tr(K²) with Rademacher (Hutchinson)
+    device matmuls) and estimates tr(K²) with Rademacher (Hutchinson)
     probes; tr(K) and y'Ky are computed exactly in the same pass.
     Accepts in-RAM PackedGenotypes or disk-backed WindowedPacked inputs.
     ``sample_idx`` restricts the analysis to a sample subset (e.g. the

@@ -96,8 +96,8 @@ def unrelated_set(
 @partial(jax.jit, static_argnames=("block",))
 def _king_counts_pair(pk_i, pk_j, block: int):
     """Pairwise KING counts between two sample tiles: per SNP block,
-    indicator matmuls between tile-i planes and tile-j planes (the MXU is
-    the TPU-native popcount — reference KING.rs bitplane AND-popcounts)."""
+    indicator matmuls between tile-i planes and tile-j planes (the matmul is
+    the device's popcount — reference KING.rs bitplane AND-popcounts)."""
     nblk = pk_i.shape[0] // block
     pi = pk_i.reshape(nblk, block, pk_i.shape[1])
     pj = pk_j.reshape(nblk, block, pk_j.shape[1])

@@ -2,7 +2,7 @@
 
 Replaces the reference's SIMD LD-prune kernels
 (/root/reference/src/stats/ld.rs: count-window pruning, MAF-priority
-variant). TPU mapping: correlations for a whole SNP chunk come from ONE
+variant). Device mapping: correlations for a whole SNP chunk come from ONE
 (C, n) x (n, C) device matmul of standardized rows; the greedy window
 sweep over the precomputed r² matrix runs on host (tiny).
 

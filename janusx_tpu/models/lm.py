@@ -10,7 +10,7 @@ Math (reference /root/reference/src/stats/glm.rs:1-8):
 Device step per SNP block: decode packed 2-bit to centered f32, then two
 matmuls (G @ M_X y and G @ X) + row reductions; centering makes the pad
 lanes exact zeros so no masking is needed. The per-block cost is dominated
-by (B, n) x (n, p+1) MXU work.
+by (B, n) x (n, p+1) device work.
 """
 
 from __future__ import annotations
@@ -26,6 +26,7 @@ from janusx_tpu import config
 from janusx_tpu.io.packed import PackedGenotypes
 from janusx_tpu.models.scan_common import ScanResult
 from janusx_tpu.ops import decode
+from janusx_tpu.parallel.mesh import mesh_step
 
 _DBL_MIN = np.finfo(np.float64).tiny
 
@@ -60,7 +61,7 @@ def _lm_step(packed, mean, X, C, My, n: int):
 
 
 def _lm_scan_core(pk, mn, X, C, My, n: int):
-    """Whole LM scan body on pre-blocked (nblk, B, K) packed rows: f32 MXU
+    """Whole LM scan body on pre-blocked (nblk, B, K) packed rows: f32 device
     grams (the projection is exact linear algebra; f32-HIGHEST rounding
     ~1e-7 relative). Returns (2, nblk, B)."""
     f32 = jnp.float32
@@ -166,8 +167,7 @@ def lm_scan(
     from janusx_tpu.utils import devcache
 
     m = pg.m
-    if mesh is not None:
-        block = -(-block // mesh.devices.size) * mesh.devices.size
+    block = mesh_step(block, mesh)
     m_pad = -(-m // block) * block
     nblk = m_pad // block
     pk = devcache.device_packed_blocks(pg, (nblk, block), mesh=mesh)
@@ -284,9 +284,7 @@ def lm_scan_multi(
     from janusx_tpu.utils import devcache
 
     m = pg.m
-    block = min(block, m)
-    if mesh is not None:
-        block = -(-block // mesh.devices.size) * mesh.devices.size
+    block = mesh_step(min(block, m), mesh)
     m_pad = -(-m // block) * block
     nblk = m_pad // block
     pk = devcache.device_packed_blocks(pg, (nblk, block), mesh=mesh)

@@ -14,7 +14,7 @@ line, with blocks of size = observations per line (typically 2-10).
 
 We batch those blocks into padded (L, s, s) tensors and do every REML
 iteration with one batched Cholesky — the same lattice-of-small-problems
-shape the TPU scan kernels use, here in numpy f64 (the per-eval cost at
+shape the device scan kernels use, here in numpy f64 (the per-eval cost at
 rice6048 scale, L≈3k s≈6, is sub-millisecond).
 
 Non-line-nested random terms (e.g. a `block` factor shared across lines)

@@ -7,9 +7,9 @@ beta/se at the optimum give the Wald test; ``lmm2`` additionally reports
 per-SNP λ, the ML loglik at the optimum, and an LRT p against the null ML
 (columns lambda/ml/plrt — src/io/assoc2tsv.rs Lmm2_6).
 
-TPU mapping: a whole SNP block optimizes in lockstep — the batched Brent
-(janusx_tpu.ops.brent) drives the batched spectral REML objective
-(janusx_tpu.core.reml), whose λ-step cost is a few (B, n) x (n, k) MXU
+Device mapping: a whole SNP block optimizes in lockstep — the batched
+Brent (janusx_tpu.ops.brent) drives the batched spectral REML objective
+(janusx_tpu.core.reml), whose λ-step cost is a few (B, n) x (n, k)
 matmuls. This replaces the reference's rayon per-row scalar Brent loops;
 warm starts are per-block (null λ) instead of per-row-sequential, which
 changes nothing beyond the Brent tolerance.
@@ -17,7 +17,6 @@ changes nothing beyond the Brent tolerance.
 
 from __future__ import annotations
 
-import os
 from functools import lru_cache, partial
 
 import jax
@@ -45,6 +44,7 @@ from janusx_tpu.io.packed import PackedGenotypes
 from janusx_tpu.models.scan_common import ScanResult, finalize_invalid, iter_blocks, pad_rows
 from janusx_tpu.ops import decode
 from janusx_tpu.ops.brent import brent_minimize_batched
+from janusx_tpu.parallel.mesh import mesh_step
 from janusx_tpu.utils import devcache
 
 
@@ -73,218 +73,88 @@ def _lmm_block(
     return lgs, beta, se, ml, ssq
 
 
-def _lattice_operands(sh, rot: RotatedData, n: int, N2: int, p: int):
-    """Pack the (Wp, YX, SH) operands of the fused λ-lattice kernel.
-
-    The SH row layout MUST stay byte-identical to the offsets hard-coded
-    in _grid_lattice_kernel (ops/pallas_kernels.py) — it is defined HERE
-    exactly once for both scan paths: the single-trait scan calls this
-    directly and the trait-level multi scan vmaps it over the stacked
-    trait axis."""
-    G = sh.grid_lg.shape[-1]
-    f32 = jnp.float32
-    Wp = jnp.zeros((G, N2), f32).at[:, :n].set(sh.w32)
-    YX = jnp.zeros((1 + p, N2), f32)
-    YX = YX.at[0, :n].set(rot.yr.astype(f32))
-    for q in range(p):
-        YX = YX.at[1 + q, :n].set(rot.Xr[:, q].astype(f32))
-    SH = jnp.concatenate(
-        [
-            sh.Ar_inv32.reshape(G, p * p).T,
-            sh.Ainv_axy32.T,
-            sh.Axx32.reshape(G, p * p).T,
-            sh.axy32.T,
-            sh.ayy32[None, :],
-            sh.logdetAr32[None, :],
-            sh.logdetV32[None, :],
-        ],
-        axis=0,
-    )
-    return Wp, YX, SH
-
-
-def _lmm_scan_core(pk, mn, U32, rot: RotatedData, sh, n: int, with_ml: bool,
-                   use_pallas: bool, lattice: bool = True,
-                   grid_prec: str = "default", rot_prec: str = "highest"):
+def _lmm_scan_core(pk, mn, U32, rot: RotatedData, sh, n: int, with_ml: bool):
     """Whole-scan body on pre-blocked (nblk, B, K) packed genotypes:
     lax.scan streams SNP blocks through decode -> rotate -> grid λ-search
     -> f32-gram beta/se -> device Wald p. Under shard_map the B axis is
     the per-device slice; per-SNP statistics need no communication.
-    Returns (6, nblk, B) — the block structure is kept so the sharded
-    axis reassembles in SNP order.
+    Returns ((3, nblk, B) beta/se/p, (nblk, B) log10 λ*, (nblk, B) ml) —
+    the block structure is kept so the sharded axis reassembles in SNP
+    order.
 
     ``sh`` is the precomputed GridShared state (cached across calls — its
     f64 (G, n) lattice work is per-trait, not per-scan).
     """
 
     p = rot.p
-    # fused Pallas λ-lattice: the whole (B, G) Schur/-REML closed form in
-    # VMEM (ops.pallas_kernels.grid_neg_reml_lattice) instead of ~15 XLA
-    # (B, G) HBM intermediates; needs MXU-aligned B and G tiles
-    use_lattice = (
-        lattice
-        and use_pallas
-        and p <= 4
-        and sh.grid_lg.shape[0] % 128 == 0
-        and pk.shape[1] % 256 == 0
-        # VMEM bound: the lattice kernel streams (bm + bg + 1 + p) full
-        # sample rows per grid step; past ~32k padded lanes that blows
-        # the ~128 MiB VMEM — fall back to the XLA grid instead of a
-        # Mosaic allocation error (biobank-n cohorts)
-        and U32.shape[1] <= config.knob("JX_TPU_LATTICE_MAX_N")
-    )
-    if use_lattice:
-        from janusx_tpu.ops.pallas_kernels import grid_neg_reml_lattice
 
-        N2 = U32.shape[1]  # plane-permuted operand's padded sample lanes
-        Wp, YX, SH = _lattice_operands(sh, rot, n, N2, p)
-
-    if use_lattice:
-        # maximally hoisted form: the scan body is ONLY the fused
-        # decode+rotate kernel and the VMEM lattice kernel (the measured
-        # compute floor); GrF and the (B, G) lattice carry through HBM
-        # (the caller bounds resident m so the carry stays ~2 GB) and
-        # argmin + final grams + the f64 epilogue each run ONCE over the
-        # whole scan — per-op launch overhead inside lax.scan was the
-        # dominant non-floor cost (round-3 ablation).
-        from janusx_tpu.core.reml import argmin_parabolic
-
-        def body_lat(_, xs):
-            pkb, mnb = xs
-            from janusx_tpu.ops.pallas_kernels import decode_rotate_planar
-
-            GrF = decode_rotate_planar(pkb, mnb[:, None], U32,
-                                       prec=rot_prec)
-            neg = grid_neg_reml_lattice(
-                GrF, Wp, YX, SH, p=p, ridge=float(config.GRAM_RIDGE),
-                nf=float(n), prec=grid_prec,
-            )
-            return None, (GrF, neg)
-
-        _, (GrF_all, neg_all) = jax.lax.scan(body_lat, None, (pk, mn))
-        nblk, B = neg_all.shape[0], neg_all.shape[1]
-        Gr_flat = GrF_all.reshape(nblk * B, -1)[:, :n]
-        lgs_flat = argmin_parabolic(
-            neg_all.reshape(nblk * B, -1), sh.grid_lg)
-        ssq = jnp.sum(Gr_flat * Gr_flat, axis=-1).reshape(nblk, B)
-        A1, A2, agg, ldV = final_grams_f32(rot, Gr_flat, lgs_flat, with_ml)
-        lgs = lgs_flat.reshape(nblk, B)
-        beta, se, ml = final_stats_from_grams(
-            n, p, A1, A2, agg, with_ml, ldV,
-        )
-    else:
-        def body(_, xs):
-            pkb, mnb = xs
-            if use_pallas:
-                # fused decode+matmul kernel: U32 here is the
-                # plane-permuted (K2, N2) operand
-                from janusx_tpu.ops.pallas_kernels import decode_rotate_planar
-
-                GrF = decode_rotate_planar(pkb, mnb[:, None], U32,
-                                           prec=rot_prec)
-                Gr32 = GrF[:, :n]
-            else:
-                Graw = decode.decode_centered(
-                    pkb, mnb, dtype=jnp.float32)[:, :n]
-                Gr32 = jnp.dot(Graw, U32,
-                               precision=jax.lax.Precision.HIGHEST)
-            ssq = jnp.sum(Gr32 * Gr32, axis=-1)  # f32; cast post-scan
-            lgs = lmm_grid_scan_with(sh, rot, Gr32)  # casts to f32 inside
-            # per-block work stays f32 (MXU grams); the f64 Schur epilogue
-            # is launch-bound (emulated f64) and runs ONCE post-scan
+    def body(_, xs):
+        pkb, mnb = xs
+        with jax.named_scope("decode"):
+            Graw = decode.decode_centered(pkb, mnb, dtype=jnp.float32)[:, :n]
+        with jax.named_scope("rotate"):
+            Gr32 = jnp.dot(Graw, U32, precision=jax.lax.Precision.HIGHEST)
+        ssq = jnp.sum(Gr32 * Gr32, axis=-1)  # f32; cast post-scan
+        lgs = lmm_grid_scan_with(sh, rot, Gr32)  # casts to f32 inside
+        # per-block work stays f32; the f64 Schur epilogue runs ONCE
+        # post-scan over the stacked grams
+        with jax.named_scope("final_grams"):
             A1, A2, agg, ldV = final_grams_f32(rot, Gr32, lgs, with_ml)
-            return None, (lgs, A1, A2, agg, ldV, ssq)
+        return None, (lgs, A1, A2, agg, ldV, ssq)
 
-        _, (lgs, A1, A2, agg, ldV, ssq) = jax.lax.scan(body, None, (pk, mn))
-        nblk, B = lgs.shape
-        beta, se, ml = final_stats_from_grams(
-            n, p, A1.reshape(nblk * B, -1), A2.reshape(nblk * B, -1),
-            agg.reshape(-1), with_ml, ldV.reshape(-1),
-        )
+    _, (lgs, A1, A2, agg, ldV, ssq) = jax.lax.scan(body, None, (pk, mn))
+    nblk, B = lgs.shape
+    beta, se, ml = final_stats_from_grams(
+        n, p, A1.reshape(nblk * B, -1), A2.reshape(nblk * B, -1),
+        agg.reshape(-1), with_ml, ldV.reshape(-1),
+    )
     beta = beta.reshape(nblk, B)
     se = se.reshape(nblk, B)
-    # monomorphic/degenerate-lane sanitize ON DEVICE (reference rules,
-    # src/math/linalg.rs:99-108 + ssq<=eps): transporting ssq just to
-    # re-apply the same mask on host costs relay bytes
+    # monomorphic/degenerate-lane sanitize on device (reference rules,
+    # src/math/linalg.rs:99-108 + ssq<=eps), so ssq never leaves the card
     bad = ~jnp.isfinite(beta) | ~jnp.isfinite(se) | (se <= 0) | (ssq <= 1e-12)
     beta = jnp.where(bad, jnp.nan, beta)
     se = jnp.where(bad, jnp.nan, se)
     # Wald χ²(1) p on device: merges the scipy host step into the same
     # dispatch (reference p-value semantics, src/math/linalg.rs:99-108)
     pwald = jstats.pwald_from_beta_se_device(beta, se)
-    # one stacked f32 output -> a single host fetch. The dev relay moves
-    # ~50 MB/s with ~35 ms latency, so transported bytes are ~45% of the
-    # measured scan wall at chromosome m — f32 carries the full precision
-    # of every printed column (beta/se %.4f, p %.4e; p-values at the f32
-    # floor are recomputed exactly on host via _PWALD_F32_FLOOR). lgs/ml
-    # transport ONLY on the lmm2 route (the plain-LMM TSV has no lambda
-    # column; ml stays f64 — LRT differences O(n)-magnitude logliks).
+    # one stacked f32 output -> a single host fetch. f32 carries the full
+    # precision of every printed column (beta/se %.4f, p %.4e; p-values at
+    # the f32 floor are recomputed exactly on host via _PWALD_F32_FLOOR).
+    # lgs/ml are fetched ONLY on the lmm2 route (the plain-LMM TSV has no
+    # lambda column; ml stays f64 — LRT differences of O(n) logliks).
     f32 = jnp.float32
     stack = jnp.stack([beta.astype(f32), se.astype(f32), pwald.astype(f32)])
     # shapes kept (nblk, B) for the shard_map out_spec; the caller only
-    # FETCHES these on the lmm2 route, so the zeros cost no transport
+    # FETCHES these on the lmm2 route
     ml64 = (ml.reshape(nblk, B) if with_ml
             else jnp.zeros((nblk, B), f32))
     return stack, lgs.astype(f32), ml64
 
 
-@partial(jax.jit, static_argnames=("n", "with_ml", "use_pallas", "lattice",
-                                   "grid_prec", "rot_prec"))
-def _lmm_scan_resident(pk, mn, U32, rot, sh, n, with_ml, use_pallas=False,
-                       lattice=True, grid_prec="default",
-                       rot_prec="highest"):
-    return _lmm_scan_core(pk, mn, U32, rot, sh, n, with_ml, use_pallas,
-                          lattice, grid_prec, rot_prec)
+@partial(jax.jit, static_argnames=("n", "with_ml"))
+def _lmm_scan_resident(pk, mn, U32, rot, sh, n, with_ml):
+    return _lmm_scan_core(pk, mn, U32, rot, sh, n, with_ml)
 
 
 @lru_cache(maxsize=8)
-def _lmm_scan_sharded(mesh, n: int, with_ml: bool, use_pallas: bool,
-                      lattice: bool = True, grid_prec: str = "default",
-                      rot_prec: str = "highest"):
+def _lmm_scan_sharded(mesh, n: int, with_ml: bool):
     """SNP-sharded whole scan: shard_map over the mesh 'snp' axis.
 
     pk/mn arrive with their per-block SNP axis sharded; U32/rot/sh are
-    replicated. Each device scans its SNP rows — the TPU-native
+    replicated. Each device scans its SNP rows — the device-mesh
     replacement for the reference's rayon x BLAS two-level thread plan
     (reference python/janusx/assoc/workflow.py:5296-5460)."""
     from jax.sharding import PartitionSpec as P
 
-    shard_map = jax.shard_map
-
-    fn = partial(_lmm_scan_core, n=n, with_ml=with_ml, use_pallas=use_pallas,
-                 lattice=lattice, grid_prec=grid_prec, rot_prec=rot_prec)
-    mapped = shard_map(
+    fn = partial(_lmm_scan_core, n=n, with_ml=with_ml)
+    mapped = jax.shard_map(
         fn,
         mesh=mesh,
         in_specs=(P(None, "snp", None), P(None, "snp"), P(), P(), P()),
         out_specs=(P(None, None, "snp"), P(None, "snp"), P(None, "snp")),
     )
     return jax.jit(mapped)
-
-
-def _planar_operand(basis: SpectralBasis, pk_lanes: int, n: int):
-    """Plane-permuted (K2, N2) f32 rotation operand for the fused Pallas
-    decode+rotate kernel, cached on the basis identity (shared by the
-    single- and multi-trait scans)."""
-    from janusx_tpu.ops.pallas_kernels import plane_permutation
-
-    bk, bn = 512, 256
-    K2 = pk_lanes * 4
-    N2 = -(-n // bn) * bn
-    key = (id(basis.U), "Uplanar", K2, N2)
-    U_op = devcache._cache.get(key)
-    if U_op is None:
-        U2 = np.zeros((K2, N2), np.float32)
-        U2[:n, :n] = basis.U.astype(np.float32)
-        U_op = jnp.asarray(U2[plane_permutation(K2, bk)])
-        import weakref
-
-        try:
-            weakref.finalize(basis.U, devcache._cache.pop, key, None)
-            devcache._cache[key] = U_op
-        except TypeError:
-            pass  # not weakref-able: skip caching
-    return U_op
 
 
 # Per-trait scan state cache: rotated data + λ-grid shared pieces stay
@@ -353,13 +223,15 @@ def lmm_scan(
     block: int = config.DEFAULT_SNP_BLOCK,
     lmm2: bool = False,
     null: NullFit | None = None,
-    method: str = "grid",  # "grid" (TPU-fast) | "brent" (reference-faithful)
+    method: str = "grid",  # "grid" (shared λ grid) | "brent" (reference-faithful)
     grid_points: int | None = None,  # None = JX_TPU_GRID_POINTS (default 256)
-    use_pallas: bool | None = None,  # fused decode+rotate kernel; None = auto (TPU)
     superblock: int = 1 << 20,  # SNPs resident on device per host chunk
     mesh=None,  # jax.sharding.Mesh with a 'snp' axis: SNP-shard the scan
 ) -> tuple[ScanResult, NullFit]:
-    """Exact LMM scan over all SNPs of the (subset) packed genotypes."""
+    """Exact LMM scan over all SNPs of the (subset) packed genotypes.
+
+    ``block`` is the SNPs each device scans per step (with a mesh, one
+    step covers ``block`` x devices SNPs)."""
     if method not in ("grid", "brent"):
         # a typo ('Grid', 'GRID', ...) must not silently select the
         # orders-of-magnitude-slower reference-faithful Brent loop
@@ -372,20 +244,6 @@ def lmm_scan(
             "lmm_scan(method='brent') runs single-device; the mesh argument "
             "is ignored on this path (use method='grid' for sharded scans)",
             stacklevel=2)
-    if use_pallas is None:
-        use_pallas = (
-            method == "grid"
-            and jax.default_backend() not in ("cpu",)
-            and os.environ.get("JX_TPU_PALLAS", "1") not in ("0", "false")
-        )
-    # the fused Pallas kernel tiles 512-row SNP planes: a partial tile
-    # would be silently skipped (grid floor-division), so any block not
-    # aligned to 512 must take the XLA path (small m, tail chunks)
-    if use_pallas and min(block, pg.m if pg.m else block) % 512 != 0:
-        use_pallas = False
-    lattice = os.environ.get("JX_TPU_PALLAS_GRID", "1") not in ("0", "false")
-    grid_prec = config.choice_knob("JX_TPU_GRID_MXU_PREC", ("default", "highest"))
-    rot_prec = config.choice_knob("JX_TPU_ROTATE_PREC", ("highest", "high"))
     if grid_points is None:
         grid_points = config.knob("JX_TPU_GRID_POINTS")
     y = np.asarray(y, np.float64).reshape(-1)
@@ -394,22 +252,12 @@ def lmm_scan(
     if null is None:
         null = fit_null_reml(rot)
 
-    # the full (n, n) f32 rotation upload is only needed by the XLA-grid
-    # and brent paths — the Pallas route builds its own planar operand, so
-    # uploading here unconditionally would cost n^2*4 dead bytes (1.6 GB
-    # at n=20k through a slow link) and pin a second U copy in HBM
-    _u32 = lambda: devcache.to_device(basis.U, jnp.float32)
+    U32 = devcache.to_device(basis.U, jnp.float32)
     m = pg.m
     block = min(block, m) if m else block
     # lazy disk-backed inputs (io.windowed.WindowedPacked) bound their
     # resident-SNP chunk; in-RAM inputs chunk only above `superblock`
     superblock = min(superblock, getattr(pg, "max_resident_snps", superblock))
-    if use_pallas and method == "grid":
-        # the hoisted lattice path carries GrF (m, N2) f32 + the (m, G)
-        # lattice through HBM: bound the resident chunk to ~2 GB of carry
-        N2 = (-(-n // 256)) * 256
-        cap = (2 << 30) // ((N2 + grid_points) * 4)
-        superblock = max(min(superblock, (cap // block) * block), block)
     if m > superblock:
         # streaming superblock mode: chunk the (possibly disk-backed)
         # matrix through the resident scan so neither host RAM nor HBM
@@ -426,8 +274,7 @@ def lmm_scan(
                 spans, lambda se: pg.take_snps(np.arange(se[0], se[1]))):
             r, null = lmm_scan(
                 sub, basis, y, covariates, block=block, lmm2=lmm2, null=null,
-                method=method, grid_points=grid_points, use_pallas=use_pallas,
-                mesh=mesh,
+                method=method, grid_points=grid_points, mesh=mesh,
             )
             parts.append(r)
         return ScanResult.concat(parts), null
@@ -435,42 +282,26 @@ def lmm_scan(
         pg = pg.take_snps(np.arange(m))
     packed = None if method == "grid" else decode.pad_packed_cols(pg.packed)
     if method == "grid":
-        if mesh is not None:
-            ndev = mesh.devices.size
-            # every device needs the same whole blocks: pad block to a
-            # multiple of the mesh, and keep the local slice pallas-tileable
-            block = -(-block // ndev) * ndev
-            if use_pallas and (block // ndev) % 512 != 0:
-                use_pallas = False
+        block = mesh_step(block, mesh)
         m_pad = -(-m // block) * block
         nblk = m_pad // block
-        if use_pallas:
-            pk = devcache.device_packed_blocks(
-                pg, (nblk, block), lane_align=512, mesh=mesh
-            )
-            U_op = _planar_operand(basis, pk.shape[2], n)
-        else:
-            pk = devcache.device_packed_blocks(pg, (nblk, block), mesh=mesh)
-            U_op = _u32()
+        pk = devcache.device_packed_blocks(pg, (nblk, block), mesh=mesh)
         mn = devcache.to_device_blocks(
             pg.mean, (nblk, block), 0.0, dtype=jnp.float32, mesh=mesh
         )
         if mesh is not None:
-            U_op, rot_d, sh_d = devcache.replicate_tree((U_op, rot, sh), mesh)
-            fn = _lmm_scan_sharded(mesh, n, lmm2, use_pallas, lattice,
-                                   grid_prec, rot_prec)
-            stack, lgs_dev, ml_dev = fn(pk, mn, U_op, rot_d, sh_d)
+            U_d, rot_d, sh_d = devcache.replicate_tree((U32, rot, sh), mesh)
+            stack, lgs_dev, ml_dev = _lmm_scan_sharded(mesh, n, lmm2)(
+                pk, mn, U_d, rot_d, sh_d)
         else:
             stack, lgs_dev, ml_dev = _lmm_scan_resident(
-                pk, mn, U_op, rot, sh, n, lmm2, use_pallas, lattice,
-                grid_prec, rot_prec)
+                pk, mn, U32, rot, sh, n, lmm2)
         out = np.asarray(stack).astype(np.float64).reshape(3, m_pad)
         beta = out[0, :m]
         se = out[1, :m]
         pwald_dev = out[2, :m]
-        # lambda/ml transport ONLY for the LRT route (fetch bytes are a
-        # large share of measured scan wall through the dev relay; the
-        # plain-LMM TSV has no lambda column)
+        # lambda/ml are fetched ONLY for the LRT route (the plain-LMM TSV
+        # has no lambda column)
         if lmm2:
             lbd = 10.0 ** np.asarray(lgs_dev, np.float64).reshape(m_pad)[:m]
             ml = np.asarray(ml_dev, np.float64).reshape(m_pad)[:m]
@@ -486,7 +317,6 @@ def lmm_scan(
         se = np.empty(m)
         ml = np.empty(m)
         ssq = np.empty(m)
-        U32 = _u32()
         for s0, e0 in iter_blocks(m, block):
             pk = pad_rows(packed[s0:e0], block, 0xFF)
             mn = pad_rows(pg.mean[s0:e0].astype(np.float32), block)
@@ -536,65 +366,28 @@ def lmm_scan(
 # ------------------------------------------------------------ multi-trait
 
 
-def _lmm_scan_core_multi(pk, mn, U32, rots, shs, n: int, with_ml: bool,
-                         use_pallas: bool = False, grid_prec: str = "default",
-                         rot_prec: str = "highest"):
+def _lmm_scan_core_multi(pk, mn, U32, rots, shs, n: int, with_ml: bool):
     """Multi-trait grid scan: decode + rotate once per SNP block, vmapped
     per-trait λ-grid search + final stats (the trait-level LMM fast path —
-    decode+rotate is the scan's throughput floor and is amortized over T).
-    rots/shs carry a leading trait axis on every leaf.
-
-    With ``use_pallas`` the block decodes through the fused
-    decode_rotate_planar kernel and each trait's λ lattice runs in the
-    VMEM-fused grid kernel (an unrolled loop over the static T — the
-    same kernels the single-trait scan uses; the earlier XLA-only multi
-    path was measured SLOWER per trait than T separate Pallas scans)."""
+    decode+rotate is the per-SNP cost that dominates at deployment n, and
+    is amortized over T). rots/shs carry a leading trait axis on every
+    leaf."""
     p = int(rots.Xr.shape[-1])
-    T = int(rots.yr.shape[0])
-    if use_pallas:
-        from janusx_tpu.core.reml import argmin_parabolic
-        from janusx_tpu.ops.pallas_kernels import (
-            decode_rotate_planar, grid_neg_reml_lattice,
-        )
-
-        N2 = U32.shape[1]
-        grid_lg = shs.grid_lg[0]
-        # one packer for both scan paths (vmapped over the trait axis) —
-        # the SH row layout is defined once in _lattice_operands
-        Wp, YX, SH = jax.vmap(
-            lambda s_, r_: _lattice_operands(s_, r_, n, N2, p))(shs, rots)
 
     def body(_, xs):
         pkb, mnb = xs
-        if use_pallas:
-            GrF = decode_rotate_planar(pkb, mnb[:, None], U32,
-                                       prec=rot_prec)
-            Gr32 = GrF[:, :n]
-        else:
+        with jax.named_scope("decode"):
             Graw = decode.decode_centered(pkb, mnb, dtype=jnp.float32)[:, :n]
+        with jax.named_scope("rotate"):
             Gr32 = jnp.dot(Graw, U32, precision=jax.lax.Precision.HIGHEST)
         ssq = jnp.sum(Gr32 * Gr32, axis=-1)  # f32; cast once post-scan
 
-        if use_pallas:
-            outs = []
-            for t in range(T):
-                neg = grid_neg_reml_lattice(
-                    GrF, Wp[t], YX[t], SH[t], p=p,
-                    ridge=float(config.GRAM_RIDGE), nf=float(n),
-                    prec=grid_prec,
-                )
-                lgs_t = argmin_parabolic(neg, grid_lg)
-                rot_t = jax.tree.map(lambda a: a[t], rots)
-                outs.append(
-                    (lgs_t,) + final_grams_f32(rot_t, Gr32, lgs_t, with_ml)
-                )
-            lgs, A1, A2, agg, ldV = (jnp.stack(x) for x in zip(*outs))
-        else:
-            def per_trait(rot, sh):
-                lgs = lmm_grid_scan_with(sh, rot, Gr32)
+        def per_trait(rot, sh):
+            lgs = lmm_grid_scan_with(sh, rot, Gr32)
+            with jax.named_scope("final_grams"):
                 return (lgs,) + final_grams_f32(rot, Gr32, lgs, with_ml)
 
-            lgs, A1, A2, agg, ldV = jax.vmap(per_trait)(rots, shs)  # (T, ...)
+        lgs, A1, A2, agg, ldV = jax.vmap(per_trait)(rots, shs)  # (T, ...)
         return None, (lgs, A1, A2, agg, ldV, ssq)
 
     _, (lgs, A1, A2, agg, ldV, ssq) = jax.lax.scan(body, None, (pk, mn))
@@ -619,26 +412,16 @@ def _lmm_scan_core_multi(pk, mn, U32, rots, shs, n: int, with_ml: bool,
     return stack, lgs.astype(f32), ml64
 
 
-@partial(jax.jit, static_argnames=("n", "with_ml", "use_pallas", "grid_prec",
-                                   "rot_prec"))
-def _lmm_scan_resident_multi(pk, mn, U32, rots, shs, n: int, with_ml: bool,
-                             use_pallas: bool = False,
-                             grid_prec: str = "default",
-                             rot_prec: str = "highest"):
-    return _lmm_scan_core_multi(pk, mn, U32, rots, shs, n, with_ml,
-                                use_pallas, grid_prec, rot_prec)
+@partial(jax.jit, static_argnames=("n", "with_ml"))
+def _lmm_scan_resident_multi(pk, mn, U32, rots, shs, n: int, with_ml: bool):
+    return _lmm_scan_core_multi(pk, mn, U32, rots, shs, n, with_ml)
 
 
 @lru_cache(maxsize=8)
-def _lmm_scan_sharded_multi(mesh, n: int, with_ml: bool,
-                            use_pallas: bool = False,
-                            grid_prec: str = "default",
-                            rot_prec: str = "highest"):
+def _lmm_scan_sharded_multi(mesh, n: int, with_ml: bool):
     from jax.sharding import PartitionSpec as P
 
-    fn = partial(_lmm_scan_core_multi, n=n, with_ml=with_ml,
-                 use_pallas=use_pallas, grid_prec=grid_prec,
-                 rot_prec=rot_prec)
+    fn = partial(_lmm_scan_core_multi, n=n, with_ml=with_ml)
     rot_spec = RotatedData(*([P()] * len(RotatedData._fields)))
     from janusx_tpu.core.reml import GridShared
 
@@ -669,8 +452,7 @@ def lmm_scan_multi(
     """Batched exact-LMM scan for traits sharing one sample mask/basis.
 
     One resident dispatch covers every trait; numerics match per-trait
-    `lmm_scan(method="grid", use_pallas=False)` exactly (same kernels,
-    vmapped)."""
+    `lmm_scan(method="grid")` exactly (same kernels, vmapped)."""
     Y = np.asarray(Y, np.float64)
     if Y.ndim == 1:
         Y = Y[:, None]
@@ -705,47 +487,21 @@ def lmm_scan_multi(
     shs = jax.tree.map(lambda *xs: jnp.stack(xs), *[s[2] for s in states])
 
     m = pg.m
-    block = min(block, m) if m else block
-    if mesh is not None:
-        block = -(-block // mesh.devices.size) * mesh.devices.size
-    # fused Pallas kernels (decode+rotate, λ lattice) per trait — same
-    # gating as the single-trait scan; the pure-XLA multi path measured
-    # SLOWER per trait than separate Pallas scans (BENCH_NOTES round 3)
-    use_pallas = (
-        jax.default_backend() not in ("cpu",)
-        and os.environ.get("JX_TPU_PALLAS", "1") not in ("0", "false")
-        and os.environ.get("JX_TPU_PALLAS_GRID", "1") not in ("0", "false")
-        and states[0][0].p <= 4
-        and grid_points % 128 == 0
-        and block % 512 == 0
-        and (mesh is None or (block // mesh.devices.size) % 512 == 0)
-        # same VMEM bound as the single-trait lattice gate
-        and (-(-pg.n // 256)) * 256 <= config.knob("JX_TPU_LATTICE_MAX_N")
-    )
-    grid_prec = config.choice_knob("JX_TPU_GRID_MXU_PREC", ("default", "highest"))
-    rot_prec = config.choice_knob("JX_TPU_ROTATE_PREC", ("highest", "high"))
+    block = mesh_step(min(block, m) if m else block, mesh)
     m_pad = -(-m // block) * block
     nblk = m_pad // block
-    if use_pallas:
-        pk = devcache.device_packed_blocks(
-            pg, (nblk, block), lane_align=512, mesh=mesh
-        )
-        U_op = _planar_operand(basis, pk.shape[2], n)
-    else:
-        pk = devcache.device_packed_blocks(pg, (nblk, block), mesh=mesh)
-        U_op = devcache.to_device(basis.U, jnp.float32)
+    pk = devcache.device_packed_blocks(pg, (nblk, block), mesh=mesh)
+    U32 = devcache.to_device(basis.U, jnp.float32)
     mn = devcache.to_device_blocks(
         pg.mean, (nblk, block), 0.0, dtype=jnp.float32, mesh=mesh
     )
     if mesh is not None:
-        U_d, rots_d, shs_d = devcache.replicate_tree((U_op, rots, shs), mesh)
-        stack, lgs_dev, ml_dev = _lmm_scan_sharded_multi(
-            mesh, n, lmm2, use_pallas, grid_prec, rot_prec)(
-                pk, mn, U_d, rots_d, shs_d)
+        U_d, rots_d, shs_d = devcache.replicate_tree((U32, rots, shs), mesh)
+        stack, lgs_dev, ml_dev = _lmm_scan_sharded_multi(mesh, n, lmm2)(
+            pk, mn, U_d, rots_d, shs_d)
     else:
         stack, lgs_dev, ml_dev = _lmm_scan_resident_multi(
-            pk, mn, U_op, rots, shs, n, lmm2, use_pallas, grid_prec,
-            rot_prec)
+            pk, mn, U32, rots, shs, n, lmm2)
     # (3, nblk, T, B) -> (3, T, m_pad); lgs/ml fetch only for lmm2
     out = np.asarray(stack).astype(np.float64).transpose(0, 2, 1, 3)
     out = out.reshape(3, T, m_pad)

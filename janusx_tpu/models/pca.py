@@ -3,7 +3,7 @@
 Replaces the reference's `jx pca` (python/janusx/script/pca.py: eigh of
 GRM via LAPACK, or streamed RSVD src/stats/rsvd.rs:1-28).
 
-RSVD on TPU: the sketch Y = A Ω, power iterations Y <- A (A' Y), and the
+RSVD on the device: the sketch Y = A Ω, power iterations Y <- A (A' Y), and the
 final projection are all blocked matmuls against the on-device packed
 genotypes — the standardized SNP-major matrix A is (m, n), so every
 product streams SNP blocks through the 2-bit decode exactly like the GRM

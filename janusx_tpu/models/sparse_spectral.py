@@ -1,4 +1,4 @@
-"""Block-spectral sparse kinship: the TPU-native sparse-Cholesky replacement.
+"""Block-spectral sparse kinship: the device sparse-Cholesky replacement.
 
 The reference factorizes ``V_lambda = K_sparse + lambda I`` with an
 AMD-ordered sparse LLT once per lambda evaluation (its symbolic analysis
@@ -16,7 +16,7 @@ over size-bucketed, zero-padded stacks), after which
   rotated coordinates — NO numeric refactorization, ever;
 - ``V^-1 b`` solves are batched tiny matmuls;
 - the per-SNP exact-scan quadratic g' V^-1 g becomes a bucketed batched
-  einsum over SNP blocks — MXU work, not sparse triangular solves.
+  einsum over SNP blocks — device work, not sparse triangular solves.
 
 Padding convention: components are zero-padded into power-of-two size
 buckets with identity diagonal, so every pad dimension contributes an

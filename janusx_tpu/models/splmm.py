@@ -10,7 +10,7 @@ GRAMMAR-gamma (``-splmm``, the default approx route — splmm_approx.rs:1-18):
     γ = mean over sampled null markers (χ² < 5) of (g~'V^-1 g~)/(g~'g~)
     β ≈ (g~'a)/(γ g~'g~);  se ≈ 1/sqrt(γ g~'g~);  χ² = (g~'a)²/(γ g~'g~)
 
-TPU split: the sparse factorizations (SuperLU on CSC, the host-native
+Device split: the sparse factorizations (SuperLU on CSC, the host-native
 replacement for the reference's faer LLT) run on host — they are O(n)
 with a sparse K — while the per-SNP scan is pure device matmuls (the same
 residualized machinery as the LM scan: one pass over packed blocks).
@@ -36,6 +36,7 @@ from janusx_tpu.io.packed import PackedGenotypes
 from janusx_tpu.models.lm import design_matrix
 from janusx_tpu.models.scan_common import ScanResult, finalize_invalid, iter_blocks
 from janusx_tpu.ops import decode
+from janusx_tpu.parallel.mesh import mesh_step
 
 import jax.numpy as jnp
 
@@ -250,9 +251,7 @@ def _scan_ga_gmg(sub, X, C, Ma, n: int, block: int, mesh):
     from janusx_tpu.utils import devcache
 
     m = sub.m
-    blk = min(block, m)
-    if mesh is not None:
-        blk = -(-blk // mesh.devices.size) * mesh.devices.size
+    blk = mesh_step(min(block, m), mesh)
     m_pad = -(-m // blk) * blk
     nblk = m_pad // blk
     pk = devcache.device_packed_blocks(sub, (nblk, blk), mesh=mesh)
@@ -434,9 +433,7 @@ def splmm_exact_scan(
             _block = jax.jit(_block_core)
 
     m = pg.m
-    block = min(block, m)
-    if mesh is not None and _block is not None:
-        block = -(-block // mesh.devices.size) * mesh.devices.size
+    block = mesh_step(min(block, m), mesh if _block is not None else None)
     beta = np.empty(m)
     se = np.empty(m)
     gPg_all = np.empty(m)

@@ -4,9 +4,9 @@ Replaces the reference's tree module (/root/reference/src/stats/tree.rs:
 NJ + approximate-ML Newick trees from genotype alignments).
 
 Distance: allele-sharing (IBS) distance d_ij = mean(|g_i - g_j|) / 2 over
-jointly observed sites. TPU mapping: |g_i - g_j| decomposes over genotype
+jointly observed sites. Device mapping: |g_i - g_j| decomposes over genotype
 indicator classes, so the whole distance matrix is SIX (n, m) x (m, n)
-MXU matmuls of 0/1 indicators streamed over packed SNP blocks; the O(n³)
+device matmuls of 0/1 indicators streamed over packed SNP blocks; the O(n³)
 NJ agglomeration runs on host.
 """
 

@@ -1,7 +1,7 @@
 """Batched lockstep Brent minimizer.
 
 The reference minimizes -REML per SNP with a scalar Brent
-(/root/reference/src/math/brent.rs) under rayon row-parallelism. On TPU,
+(reference src/math/brent.rs) under rayon row-parallelism. On the device,
 per-row dynamic control flow would serialize, so instead ALL SNPs in a
 block run the SAME Brent iteration in lockstep: the state is a batch of
 (a, c, x, w, v, fx, fw, fv, d, e, done) vectors carried through

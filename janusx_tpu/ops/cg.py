@@ -1,6 +1,6 @@
 """Jacobi-preconditioned conjugate gradient (device-resident).
 
-TPU-native replacement for the reference's PCG solver
+Device replacement for the reference's PCG solver
 (/root/reference/src/math/pcg.rs: Jacobi-preconditioned CG with streamed
 GRM·v products): the matvec is a jit-traceable callable, so callers can
 pass a dense on-device kernel product or a streamed decode-matmul over

@@ -1,15 +1,14 @@
 """On-device 2-bit genotype decode.
 
 The packed dosage-code buffer (janusx_tpu.io.bitcodec conventions: 0/1/2 =
-dosage, 3 = missing, tail padded with 3) ships to HBM 16x smaller than f32;
-these jittable ops expand it to centered / standardized f32 blocks right
-before the consuming matmul. XLA fuses the shift/mask/select chain into the
-surrounding computation; a fused Pallas decode+matmul kernel lives in
-janusx_tpu.ops.pallas_kernels for the hot paths.
+dosage, 3 = missing, tail padded with 3) ships to device memory 16x smaller
+than f32; these jittable ops expand it to centered / standardized f32 blocks
+right before the consuming matmul. XLA fuses the shift/mask/select chain
+into the surrounding computation.
 
 Replaces the reference's host-side LUT decode
-(/root/reference/src/math/bedmath.rs, src/decode/decode.rs) — on TPU we
-ship bits, not floats, over PCIe and decode on device.
+(reference src/math/bedmath.rs, src/decode/decode.rs) — we ship
+bits, not floats, over PCIe and decode on device.
 
 Pad-and-mask convention: decoded blocks have width ``4 * nb`` (a multiple
 of 4, usually padded further to 128 lanes); padding lanes hold code 3 which

@@ -1,15 +1,15 @@
 """Multi-host initialization and host-sharded input loading.
 
 The reference is single-node; this module is the framework's scale-out
-story (SURVEY §2.3 TPU mapping): jax.distributed over DCN for process
-coordination, SNP-axis sharding over the global mesh, host-local file
-reads of each host's SNP slice (ship bits over the network, never floats),
-and XLA collectives over ICI for the GRM partial-product merge.
+story (SURVEY §2.3): jax.distributed for process coordination, SNP-axis
+sharding over the global mesh, host-local file reads of each host's SNP
+slice (ship bits over the network, never floats), and XLA collectives
+(NCCL between cards) for the GRM partial-product merge.
 
 Typical multi-host driver:
 
     from janusx_tpu.parallel import distributed as dist
-    dist.initialize()                     # MUST run before any jax call
+    dist.initialize_from_env()            # MUST run before any jax call
     mesh = dist.global_snp_mesh()
     m_pad = dist.padded_snp_total(m_total)
     lo, hi = dist.host_snp_range(m_total) # this host's PADDED slice
@@ -32,10 +32,15 @@ log = logging.getLogger("janusx_tpu.distributed")
 SNP_AXIS = "snp"
 
 
-def initialize(coordinator: str | None = None, num_processes: int | None = None,
-               process_id: int | None = None) -> None:
-    """jax.distributed.initialize — env-driven on TPU pods (no args needed);
-    explicit args for CPU/GPU multi-process testing.
+def initialize(coordinator: str, num_processes: int, process_id: int,
+               local_device_ids: list[int] | None = None) -> None:
+    """jax.distributed.initialize with an explicit cluster description.
+
+    Nothing on a GPU host describes the cluster to JAX, so the coordinator
+    address (``host:port``), the process count and this process's id are
+    required, and a failed initialization raises: a run asked to be
+    distributed never carries on as a single process. Processes that
+    share a host pass ``local_device_ids`` so each owns its own cards.
 
     Must run before ANY jax call that initializes the XLA backend — even
     jax.process_count() counts, so the only safe pre-check is
@@ -43,23 +48,41 @@ def initialize(coordinator: str | None = None, num_processes: int | None = None,
     """
     if jax.distributed.is_initialized():  # pragma: no cover
         return
-    try:
-        if coordinator is None:
-            jax.distributed.initialize()
-        else:
-            jax.distributed.initialize(
-                coordinator_address=coordinator,
-                num_processes=num_processes,
-                process_id=process_id,
-            )
-        log.info(
-            "distributed: process %d/%d, %d local / %d global devices",
-            jax.process_index(), jax.process_count(),
-            jax.local_device_count(), jax.device_count(),
-        )
-    except (ValueError, RuntimeError) as e:
-        # no coordinator env (single-host dev runs): proceed single-process
-        log.info("single-process mode (%s)", e)
+    if not coordinator or num_processes is None or process_id is None:
+        raise ValueError(
+            "distributed init needs a coordinator address, the process "
+            "count and this process's id (JX_DIST_COORDINATOR, "
+            "JX_DIST_NPROCS, JX_DIST_PROC_ID)")
+    jax.distributed.initialize(
+        coordinator_address=coordinator,
+        num_processes=num_processes,
+        process_id=process_id,
+        local_device_ids=local_device_ids,
+    )
+    log.info(
+        "distributed: process %d/%d, %d local / %d global devices",
+        jax.process_index(), jax.process_count(),
+        jax.local_device_count(), jax.device_count(),
+    )
+
+
+def initialize_from_env() -> None:
+    """initialize() from JX_DIST_COORDINATOR / JX_DIST_NPROCS /
+    JX_DIST_PROC_ID, plus JX_DIST_LOCAL_DEVICES (comma-separated card ids)
+    for processes that share a host. Missing variables raise."""
+    import os
+
+    env = os.environ
+    local = env.get("JX_DIST_LOCAL_DEVICES")
+    initialize(
+        coordinator=env.get("JX_DIST_COORDINATOR"),
+        num_processes=(int(env["JX_DIST_NPROCS"])
+                       if "JX_DIST_NPROCS" in env else None),
+        process_id=(int(env["JX_DIST_PROC_ID"])
+                    if "JX_DIST_PROC_ID" in env else None),
+        local_device_ids=([int(i) for i in local.split(",")]
+                          if local else None),
+    )
 
 
 def _mesh_devices() -> list:
@@ -127,7 +150,7 @@ def distributed_grm(source, method: int = 1, block: int | None = None,
     the unnormalized partial GRM of its host_snp_range slice on its own
     devices (models.grm.grm_partial — the same decode/psum kernels as
     grm_from_packed), and the (n, n) partials + denominators sum across
-    processes in ONE all-gather over the global mesh. Single-process
+    processes in ONE host all-gather. Single-process
     runs reduce to grm_from_packed exactly (the equivalence is tested in
     tests/test_sharding.py and exercised cross-process by
     tests/dist_worker.py).
@@ -190,7 +213,7 @@ def distributed_scan(source, scan):
 
     The per-SNP statistics need no cross-host communication (the same
     independence the in-host shard_map scans exploit) — only the final
-    result columns cross DCN, as float64 rows. Requires homogeneous
+    result columns cross the network, as float64 rows. Requires homogeneous
     local device counts (equal host slice widths).
 
         res = distributed_scan(wp, lambda sub: lm_scan(sub, y))

@@ -23,7 +23,10 @@ registry (janusx_tpu.utils.history) with:
 
 Jobs run `python -m janusx_tpu.cli.main <module> <args>` detached with a
 per-job log; completed CLI runs self-register in the history DB, so a
-finished job also appears in the history table.
+finished job also appears in the history table. A JAX process reserves
+most of each card it sees, so device jobs run one at a time per card, each
+pinned to its card with CUDA_VISIBLE_DEVICES, and the rest wait queued.
+Host-side modules, and every job on a host without cards, start at once.
 """
 
 from __future__ import annotations
@@ -46,6 +49,10 @@ ALLOWED_MODULES = (
     "gwas", "gs", "grm", "pca", "gstats", "sim", "tree", "garfield",
     "postgwas", "postgs", "fastpop", "gformat", "reml", "bsa",
 )
+# modules whose work is on the host: they start at once beside device jobs,
+# and their incidental JAX use (LD pruning/clumping) allocates card memory
+# on demand instead of reserving most of a card
+HOST_MODULES = ("sim", "postgwas", "postgs", "gformat", "bsa")
 
 _STYLE = """
 body{font-family:system-ui,sans-serif;margin:1.5em;max-width:1100px}
@@ -55,12 +62,29 @@ td,th{padding:4px 10px;border-bottom:1px solid #e2e2e2;text-align:left;
 th{background:#f6f6f6}
 a{color:#2b6cb0;text-decoration:none} a:hover{text-decoration:underline}
 .status-ok{color:#15803d}.status-failed{color:#b91c1c}
-.status-running{color:#b45309}
+.status-running,.status-queued{color:#b45309}
 pre{background:#f8f8f8;padding:10px;overflow-x:auto;font-size:12px}
 input,select{padding:4px;font-size:14px}
 .card{border:1px solid #e2e2e2;border-radius:6px;padding:12px;margin:12px 0}
 img{max-width:100%}
 """
+
+
+def visible_cards() -> list:
+    """Ids of the NVIDIA cards a job may be pinned to, found without
+    touching JAX (a JAX backend in the server would itself reserve most
+    of each card): CUDA_VISIBLE_DEVICES when set, else `nvidia-smi -L`.
+    Empty on a host without cards."""
+    env = os.environ.get("CUDA_VISIBLE_DEVICES")
+    if env is not None:
+        return [c for c in env.split(",") if c.strip()]
+    try:
+        out = subprocess.run(["nvidia-smi", "-L"], capture_output=True,
+                             text=True, timeout=10).stdout
+    except (OSError, subprocess.SubprocessError):
+        return []
+    return [str(i) for i, ln in enumerate(
+        x for x in out.splitlines() if x.startswith("GPU "))]
 
 
 class Job:
@@ -75,10 +99,18 @@ class Job:
         self.args = args
         self.workdir = workdir
         self.log_path = os.path.join(workdir, f"job{self.id}.{module}.joblog")
-        self.started = time.time()
+        self.started = time.time()  # submission time
+        self.launched: float | None = None
         self.finished: float | None = None
         self.returncode: int | None = None
-        cmd = [sys.executable, "-m", "janusx_tpu.cli.main", module] + args
+        self.proc: subprocess.Popen | None = None
+        self.error: str | None = None  # why the job could not start
+
+    def start(self, card: str | None, on_exit) -> None:
+        """Launch the job pinned to ``card`` (None: no pinning); calls
+        ``on_exit(self)`` once the process has ended."""
+        cmd = [sys.executable, "-m", "janusx_tpu.cli.main", self.module]
+        cmd += self.args
         # the package may be imported from a source tree rather than
         # site-packages — make sure the child can import it from anywhere
         env = dict(os.environ)
@@ -87,32 +119,50 @@ class Job:
         pkg_root = os.path.dirname(os.path.dirname(
             os.path.abspath(janusx_tpu.__file__)))
         env["PYTHONPATH"] = pkg_root + os.pathsep + env.get("PYTHONPATH", "")
+        if card is not None:
+            env["CUDA_VISIBLE_DEVICES"] = card
+        if self.module in HOST_MODULES:
+            env.setdefault("XLA_PYTHON_CLIENT_PREALLOCATE", "false")
         self._logf = open(self.log_path, "wb")
-        self.proc = subprocess.Popen(
-            cmd, cwd=workdir, stdout=self._logf, stderr=subprocess.STDOUT,
-            start_new_session=True, env=env,
-        )
-        threading.Thread(target=self._wait, daemon=True).start()
+        self.launched = time.time()
+        try:
+            self.proc = subprocess.Popen(
+                cmd, cwd=self.workdir, stdout=self._logf,
+                stderr=subprocess.STDOUT, start_new_session=True, env=env,
+            )
+        except BaseException:
+            self._logf.close()
+            raise
+        threading.Thread(target=self._wait, args=(on_exit,),
+                         daemon=True).start()
 
-    def _wait(self):
+    def fail(self, error: str) -> None:
+        self.error = error
+        self.returncode = -1
+        self.finished = time.time()
+
+    def _wait(self, on_exit):
         self.returncode = self.proc.wait()
         self.finished = time.time()
         self._logf.close()
+        on_exit(self)
 
     @property
     def status(self) -> str:
         if self.returncode is None:
-            return "running"
+            return "queued" if self.proc is None else "running"
         return "ok" if self.returncode == 0 else "failed"
 
     def cancel(self):
-        if self.returncode is None:
+        if self.returncode is None and self.proc is not None:
             try:
                 os.killpg(self.proc.pid, signal.SIGTERM)
             except (ProcessLookupError, PermissionError):
                 pass
 
     def log_tail(self, n: int = 200) -> str:
+        if self.error is not None:
+            return self.error
         try:
             with open(self.log_path, "rb") as fh:
                 fh.seek(0, 2)
@@ -125,9 +175,15 @@ class Job:
 
 
 class UiState:
-    def __init__(self, workdir: str):
+    def __init__(self, workdir: str, cards: list | None = None):
         self.workdir = os.path.abspath(workdir)
         self.jobs: dict[int, Job] = {}
+        # one device job per free card; a host without cards queues nothing
+        self._free = list(visible_cards() if cards is None else cards)
+        self._has_cards = bool(self._free)
+        self._queue: list[Job] = []
+        self._card_of: dict[int, str | None] = {}
+        self._jobs_lock = threading.Lock()
         self.roots = {self.workdir}
         # per-server CSRF token: form POSTs from other origins (a hostile
         # web page hitting 127.0.0.1) cannot read it, so they cannot
@@ -143,8 +199,50 @@ class UiState:
             raise ValueError(f"module not allowed: {module}")
         args = shlex.split(argline)
         job = Job(module, args, self.workdir)
-        self.jobs[job.id] = job
+        with self._jobs_lock:
+            self.jobs[job.id] = job
+            if module in HOST_MODULES or not self._has_cards:
+                self._start(job, None)
+            else:
+                self._queue.append(job)
+        self._dispatch()
         return job
+
+    def cancel(self, job: Job) -> None:
+        """Drop a queued job, or stop a running one."""
+        with self._jobs_lock:
+            if job in self._queue:
+                self._queue.remove(job)
+                job.returncode = -signal.SIGTERM
+                job.finished = time.time()
+                return
+        job.cancel()
+
+    def _dispatch(self) -> None:
+        """Start queued device jobs while a card is free."""
+        with self._jobs_lock:
+            while self._queue and self._free:
+                self._start(self._queue.pop(0), self._free.pop(0))
+
+    def _start(self, job: Job, card: str | None) -> None:
+        """Launch ``job`` on ``card`` (None: unpinned); the caller holds
+        the lock. A job that cannot start is marked failed and gives its
+        card back."""
+        self._card_of[job.id] = card
+        try:
+            job.start(card, self._release)
+        except Exception as e:  # open() or Popen failed
+            job.fail(f"could not start: {e!r}")
+            self._card_of.pop(job.id)
+            if card is not None:
+                self._free.append(card)
+
+    def _release(self, job: Job) -> None:
+        with self._jobs_lock:
+            card = self._card_of.pop(job.id)
+            if card is not None:
+                self._free.append(card)
+        self._dispatch()
 
     def _run_roots(self) -> set:
         """Output roots of ALL recorded runs (cached briefly — a locus page
@@ -298,7 +396,7 @@ class Handler(BaseHTTPRequestHandler):
             except ValueError:
                 job = None
             if job:
-                job.cancel()
+                self.state.cancel(job)
             self.send_response(303)
             self.send_header("Location", f"/job/{m[2]}")
             self.end_headers()
@@ -379,7 +477,7 @@ class Handler(BaseHTTPRequestHandler):
             f"<form method='post' action='/job/{job.id}/cancel'>"
             f"<input type='hidden' name='csrf' value='{self.state.csrf}'>"
             "<input type='submit' value='cancel'></form>"
-            if job.status == "running" else ""
+            if job.status in ("queued", "running") else ""
         )
         body = (
             f"<p>module <b>{job.module}</b> &middot; "
@@ -387,7 +485,8 @@ class Handler(BaseHTTPRequestHandler):
             f" &middot; {dur:.1f}s &middot; args: "
             f"<code>{html.escape(' '.join(job.args))}</code></p>{cancel}"
             f"<h3>log</h3><pre>{html.escape(job.log_tail())}</pre>"
-            "<script>if(document.querySelector('.status-running'))"
+            "<script>if(document.querySelector('.status-running,"
+            ".status-queued'))"
             "setTimeout(()=>location.reload(), 3000)</script>"
         )
         return self._send(_page(f"job #{job_id}", body))

@@ -2,8 +2,8 @@
 
 Repeated scans over the same trait/basis (multi-model runs, CV folds,
 FarmCPU iterations) would otherwise re-upload identical large buffers
-(rotation matrix, packed genotypes) on every call — costly through remote
-TPU links. Keyed by (id(array), dtype, shape) with a weakref finalizer so
+(rotation matrix, packed genotypes) on every call. Whether the cache
+pays over the H100's PCIe link is not measured. Keyed by (id(array), dtype, shape) with a weakref finalizer so
 entries die with their host array; id() values can only be reused after
 the original array is garbage collected, at which point the finalizer has
 already evicted the stale entry.

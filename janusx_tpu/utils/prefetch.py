@@ -2,7 +2,7 @@
 
 The reference overlaps 2-bit decode with BLAS compute via double
 buffering (/root/reference/src/stats/gblup.rs:27-28 mpsc channels,
-fvlmm.rs:20). The TPU analog: while the device runs superblock k, a
+fvlmm.rs:20). The device analog: while the device runs superblock k, a
 background thread materializes superblock k+1 from the (possibly
 disk-backed) genotype source — host IO/decode rides under device
 compute instead of serializing with it.

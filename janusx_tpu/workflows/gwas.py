@@ -1,6 +1,6 @@
 """GWAS pipeline orchestration.
 
-TPU-native re-design of the reference pipeline
+Device re-design of the reference pipeline
 (/root/reference/python/janusx/assoc/workflow.py:_run_gwas_pipeline :7159):
 
   load genotype -> QC/pack -> GRM (all genotyped samples w/ QC on full set)
@@ -184,7 +184,10 @@ def run_gwas(cfg: GwasConfig) -> list[TraitRunResult]:
     mesh = resolve_mesh(cfg.n_devices)
     if mesh is not None:
         log.info("device mesh: %d devices on the 'snp' axis", mesh.devices.size)
-    raw = load_raw_packed(cfg.genotype)
+    from janusx_tpu.utils.progress import stage
+
+    with stage("genotype read", log):
+        raw = load_raw_packed(cfg.genotype)
     log.info("genotype: %d SNPs x %d samples", raw.m, raw.n_samples)
     qraw = None
     if cfg.qtn_genotype:
@@ -207,8 +210,6 @@ def run_gwas(cfg: GwasConfig) -> list[TraitRunResult]:
     # (reference _ensure_splmm_sparse_grm, workflow_model_packed.py:807).
     from janusx_tpu.utils.cache import load_or_build_grm, load_or_build_sparse_grm
 
-    from janusx_tpu.utils.progress import stage
-
     with stage("QC/pack (full sample set)", log):
         pg_full = raw.prepare(qc)
     need_sparse = any(m in ("splmm", "splmm-exact") for m in cfg.models)
@@ -219,10 +220,12 @@ def run_gwas(cfg: GwasConfig) -> list[TraitRunResult]:
     Ksp = None
     Ksp_exact = None  # -splmm-exact with its own cutoff; else aliases Ksp
     if need_dense:
-        K = load_or_build_grm(
-            cfg.genotype, pg_full, cfg.maf, cfg.geno, method=cfg.grm_method,
-            block=cfg.block, use_cache=cfg.use_cache, mesh=mesh,
-        )
+        with stage("GRM", log):
+            K = load_or_build_grm(
+                cfg.genotype, pg_full, cfg.maf, cfg.geno,
+                method=cfg.grm_method, block=cfg.block,
+                use_cache=cfg.use_cache, mesh=mesh,
+            )
     if need_sparse:
         if cfg.sparse_grm not in ("1", "2"):
             # precomputed sparse GRM path (reference -spk FILE)
@@ -435,7 +438,8 @@ def run_gwas(cfg: GwasConfig) -> list[TraitRunResult]:
         def get_basis():
             if entry["basis"] is None:
                 Ksub = K[np.ix_(keep, keep)]
-                entry["basis"] = eigh_grm(Ksub, diag_ridge=1e-6)
+                with stage(f"eigh ({trait})", log):
+                    entry["basis"] = eigh_grm(Ksub, diag_ridge=1e-6)
             return entry["basis"]
 
         for model in cfg.models:
@@ -471,10 +475,13 @@ def run_gwas(cfg: GwasConfig) -> list[TraitRunResult]:
                 )
                 lbd_null = null.lbd
             elif model in ("lmm", "lmm2"):
-                res, null = lmm_mod.lmm_scan(
-                    pg_t, get_basis(), y_t, cov_t, block=cfg.block,
-                    lmm2=(model == "lmm2"), method=cfg.scan_method, mesh=mesh,
-                )
+                basis = get_basis()
+                with stage(f"{model} scan ({trait})", log):
+                    res, null = lmm_mod.lmm_scan(
+                        pg_t, basis, y_t, cov_t, block=cfg.block,
+                        lmm2=(model == "lmm2"), method=cfg.scan_method,
+                        mesh=mesh,
+                    )
                 lbd_null = null.lbd
             elif model == "splmm":
                 from janusx_tpu.models.splmm import splmm_grammar_scan
@@ -603,7 +610,8 @@ def run_gwas(cfg: GwasConfig) -> list[TraitRunResult]:
                     "lm2": "LM2", "fvlmm2": "FvLMM2", "lowrank": "FaSTLMM",
                 }[requested if requested != model and model == "lm" else model]
                 tsv_path = f"{cfg.out_prefix}.{trait}.{tag}.assoc.tsv"
-                res.write_tsv(tsv_path)
+                with stage(f"write TSV ({trait})", log):
+                    res.write_tsv(tsv_path)
             out.append(
                 TraitRunResult(
                     trait=str(trait), model=model, requested_model=requested,

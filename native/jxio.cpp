@@ -1,6 +1,6 @@
 // janusx-tpu native host IO kernels.
 //
-// TPU-native equivalent of the reference's Rust genotype IO layer
+// Device equivalent of the reference's Rust genotype IO layer
 // (/root/reference/src/io/gfcore.rs VcfSnpIter, gfreader.rs): the host must
 // keep the chips fed, and VCF GT parsing is the slowest host-side stage for
 // text inputs. This C++ kernel parses a block of VCF data lines and packs

@@ -1,10 +1,11 @@
 #!/usr/bin/env python
 """Multi-host GWAS demo driver (the distributed primitives end-to-end).
 
-Run the SAME command on every host (TPU pods need no env — jax reads the
-pod metadata; CPU/GPU clusters set the three env vars):
+Run the SAME command in every process, with the cluster described by the
+environment (processes that share a host also name their cards):
 
     JX_DIST_COORDINATOR=host0:8476 JX_DIST_NPROCS=2 JX_DIST_PROC_ID=0 \
+    JX_DIST_LOCAL_DEVICES=0 \
         python scripts/distributed_gwas.py --bfile panel --pheno panel.pheno
 
 Flow (parallel/distributed.py production surfaces):
@@ -24,7 +25,6 @@ The 2-process CPU-backend version of exactly this flow runs in CI
 from __future__ import annotations
 
 import argparse
-import os
 
 
 def main() -> int:
@@ -41,12 +41,7 @@ def main() -> int:
 
     from janusx_tpu.parallel import distributed as dist
 
-    coord = os.environ.get("JX_DIST_COORDINATOR")
-    dist.initialize(
-        coordinator=coord,
-        num_processes=int(os.environ["JX_DIST_NPROCS"]) if coord else None,
-        process_id=int(os.environ["JX_DIST_PROC_ID"]) if coord else None,
-    )
+    dist.initialize_from_env()
     pid = jax.process_index()
 
     import numpy as np

@@ -41,8 +41,12 @@ def main() -> int:
 
     from janusx_tpu.parallel import distributed as dist
 
-    dist.initialize(coordinator=f"127.0.0.1:{port}",
-                    num_processes=nproc, process_id=pid)
+    try:
+        dist.initialize(coordinator=f"127.0.0.1:{port}",
+                        num_processes=nproc, process_id=pid)
+    except (RuntimeError, ValueError) as e:  # cluster could not form
+        print(f"DIST_SKIP init {e}", flush=True)
+        return 0
     if jax.process_count() != nproc:
         print(f"DIST_SKIP process_count={jax.process_count()}", flush=True)
         return 0
@@ -152,8 +156,8 @@ def main() -> int:
     basis = eigh_grm(K_dist, diag_ridge=1e-6)
     yl = yv + pgv.centered()[7] * 0.6
     d_lmm = dist.distributed_scan(
-        pgv, lambda sub: lmm_scan(sub, basis, yl, use_pallas=False)[0])
-    ref_lmm, _ = lmm_scan(pgv, basis, yl, use_pallas=False)
+        pgv, lambda sub: lmm_scan(sub, basis, yl)[0])
+    ref_lmm, _ = lmm_scan(pgv, basis, yl)
     np.testing.assert_allclose(d_lmm.beta, ref_lmm.beta,
                                rtol=2e-3, atol=1e-6, equal_nan=True)
     okl = np.isfinite(ref_lmm.pwald) & (ref_lmm.pwald > 0)

@@ -50,7 +50,7 @@ def test_baseline_matches_production_brent_scan(problem):
         GenotypeData(g8, sites, np.array([f"i{j}" for j in range(n)], object)),
         QcParams(maf=0.0, geno=1.0),
     )
-    res, _ = lmm_scan(pg, basis, y, method="brent", use_pallas=False)
+    res, _ = lmm_scan(pg, basis, y, method="brent")
     # both are Brent chains at tol 1e-2 over a flat-near-optimum objective:
     # lambda* may differ within the stop tolerance, shifting beta/se ~1%
     # on flat lanes — p-value parity below is the real contract

@@ -85,21 +85,32 @@ def test_eigh_backend_knob(monkeypatch):
 
 def test_choice_knob_rejects_unknown_values(monkeypatch):
     """Enumerated knobs error on typos instead of silently picking the
-    `else` branch (JX_TPU_ROTATE_PREC=higest must not select bf16x3)."""
-    import pytest
+    `else` branch (JX_TPU_EIGH_BACKEND=devcie must not select host)."""
+    from janusx_tpu.core.spectral import eigh_grm
 
-    from janusx_tpu import config
+    monkeypatch.setenv("JX_TPU_EIGH_BACKEND", "devcie")
+    with pytest.raises(ValueError, match="JX_TPU_EIGH_BACKEND"):
+        config.choice_knob("JX_TPU_EIGH_BACKEND", ("host", "device"))
+    with pytest.raises(ValueError, match="JX_TPU_EIGH_BACKEND"):
+        eigh_grm(np.eye(4))
+    monkeypatch.setenv("JX_TPU_EIGH_BACKEND", "DEVICE")  # case-folded ok
+    assert config.choice_knob("JX_TPU_EIGH_BACKEND",
+                              ("host", "device")) == "device"
 
-    monkeypatch.setenv("JX_TPU_ROTATE_PREC", "higest")
-    with pytest.raises(ValueError, match="JX_TPU_ROTATE_PREC"):
-        config.choice_knob("JX_TPU_ROTATE_PREC", ("highest", "high"))
-    monkeypatch.setenv("JX_TPU_ROTATE_PREC", "HIGH")  # case-folded ok
-    assert config.choice_knob("JX_TPU_ROTATE_PREC",
-                              ("highest", "high")) == "high"
-    from janusx_tpu.ops import pallas_kernels as pk
 
-    with pytest.raises(ValueError, match="ROTATE_PREC"):
-        pk.decode_rotate_planar(np.zeros((512, 32), np.uint8),
-                                np.zeros(512, np.float32),
-                                np.zeros((128, 256), np.float32),
-                                prec="default")
+@pytest.mark.parametrize("env_dir", [None, "/elsewhere/xla"])
+def test_compile_cache_placement(monkeypatch, env_dir):
+    """JAX_COMPILATION_CACHE_DIR, when set, is left in charge (the package
+    names no other directory); otherwise the cache is <checkout>/.jax_cache."""
+    import os
+
+    import janusx_tpu
+
+    if env_dir is None:
+        monkeypatch.delenv("JAX_COMPILATION_CACHE_DIR", raising=False)
+        root = os.path.dirname(os.path.dirname(os.path.abspath(
+            janusx_tpu.__file__)))
+        assert janusx_tpu._compile_cache_dir() == os.path.join(root, ".jax_cache")
+    else:
+        monkeypatch.setenv("JAX_COMPILATION_CACHE_DIR", env_dir)
+        assert janusx_tpu._compile_cache_dir() is None

@@ -61,8 +61,9 @@ def naive_fem_scan(G, y, X0):
     return beta, se, p
 
 
-def naive_qtn_pvalues(Zq, y, X_base):
-    """Joint background model: each pseudo-QTN's own covariate t-test."""
+def naive_qtn_tests(Zq, y, X_base):
+    """Joint background model: each pseudo-QTN's own covariate t-test,
+    as (beta, se, p)."""
     X = np.concatenate([X_base, Zq.T], axis=1)
     n, k = X.shape
     df = n - k
@@ -72,7 +73,12 @@ def naive_qtn_pvalues(Zq, y, X_base):
     Cinv = np.linalg.pinv(X.T @ X)
     se = np.sqrt(np.maximum(sigma2 * np.diag(Cinv), 1e-300))
     p = _t_sf_two_sided(coef / se, df)
-    return p[X_base.shape[1]:]
+    q = slice(X_base.shape[1], None)
+    return coef[q], se[q], p[q]
+
+
+def naive_qtn_pvalues(Zq, y, X_base):
+    return naive_qtn_tests(Zq, y, X_base)[2]
 
 
 def naive_rem_score(Zq, y):
@@ -226,6 +232,20 @@ def test_farmcpu_matches_independent_numpy(h2, seed):
     assert ok.sum() > 0.95 * pg.m
     dlogp = np.abs(np.log10(pw[ok]) - np.log10(pvals[ok]))
     assert np.nanmax(dlogp) < 5e-3, f"max dlogp {np.nanmax(dlogp)}"
+
+
+def test_farmcpu_qtn_rows_report_the_joint_model():
+    """QTN rows carry the joint background model's beta, se and p: the
+    final scan, conditioned on each QTN, has no defined effect for it."""
+    pg, y = _problem(260, 1600, 0.5, 3)
+    out = farmcpu_scan(pg, y)
+    q = out.qtns
+    assert len(q) > 0
+    beta, se, p = naive_qtn_tests(pg.centered()[q], y, np.ones((pg.n, 1)))
+    r = out.result
+    np.testing.assert_allclose(r.beta[q], beta, rtol=1e-6)
+    np.testing.assert_allclose(r.se[q], se, rtol=1e-6)
+    np.testing.assert_allclose(r.pwald[q], p, rtol=1e-6)
 
 
 def test_rem_score_lowrank_matches_dense(rng):

@@ -429,20 +429,6 @@ def test_kstats_kbin_compare_and_min_count(tmp_path):
     assert inter[2][1] == "0" and inter[3][1] == "0" and inter[3][2] == "0"
 
 
-def test_bench_two_point_fit():
-    """bench.py slope fit: the headline cancels a fixed per-call cost."""
-    import bench
-
-    # synthetic: 35 ms fixed + 0.8 us/SNP
-    m1, m2 = 144_000, 287_000
-    t1 = 0.035 + m1 * 0.8e-6
-    t2 = 0.035 + m2 * 0.8e-6
-    slope = (t2 - t1) / (m2 - m1)
-    assert abs(1.0 / slope - 1.25e6) < 1e3  # 1/0.8us = 1.25M SNPs/s
-    fixed_ms = (t2 - slope * m2) * 1e3
-    assert abs(fixed_ms - 35.0) < 1e-6
-
-
 def _random_fastq(path, n_reads=4000, readlen=100, seed=0):
     rng = np.random.default_rng(seed)
     bases = np.frombuffer(b"ACGT", np.uint8)

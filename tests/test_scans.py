@@ -175,7 +175,7 @@ def test_lmm_superblock_streaming_matches(scan_problem):
     (80, 0, 0.1), (80, 2, 0.9), (300, 0, 0.5), (300, 1, 0.9), (150, 3, 0.3),
 ])
 def test_grid_vs_brent_parity_sweep(n, p_cov, h2):
-    """ROADMAP parity hardening: the TPU-fast grid path must match the
+    """ROADMAP parity hardening: the fast grid path must match the
     reference-faithful batched Brent across sample sizes, covariate
     counts, and heritability regimes."""
     rng = np.random.default_rng(n * 7 + p_cov * 13 + int(h2 * 10))
@@ -227,3 +227,41 @@ def test_lm_scan_multi_matches_single(scan_problem, rng):
         lp_m = -np.log10(multi[t].pwald)
         lp_s = -np.log10(single.pwald)
         np.testing.assert_allclose(lp_m, lp_s, atol=5e-3)
+
+
+@pytest.mark.parametrize("multi", [False, True], ids=["lmm_scan", "lmm_scan_multi"])
+def test_scan_takes_one_route_on_every_backend(multi, monkeypatch):
+    """No backend chooses a kernel: with jax.default_backend() reporting a
+    GPU the grid scans run the same XLA body and agree bit for bit."""
+    import jax
+
+    from janusx_tpu.models.lmm import lmm_scan_multi
+
+    rng = np.random.default_rng(11)
+    m, n = 1024, 64  # whole 512-SNP blocks
+    g = rng.binomial(2, rng.uniform(0.1, 0.5, (m, 1)), size=(m, n)).astype(np.int8)
+    sites = SiteInfo(
+        chrom=np.array(["1"] * m, object),
+        pos=np.arange(1, m + 1, dtype=np.int64),
+        snp=np.array([f"rs{i}" for i in range(m)], object),
+        allele0=np.array(["A"] * m, object),
+        allele1=np.array(["G"] * m, object),
+    )
+    pg = pack_genotypes(
+        GenotypeData(g, sites, np.array([f"i{j}" for j in range(n)], object)),
+        QcParams(maf=0.0))
+    basis = eigh_grm(grm_from_packed(pg), diag_ridge=1e-6)
+    Y = rng.normal(size=(n, 2))
+
+    def run():
+        if multi:
+            return lmm_scan_multi(pg, basis, Y, block=512)[0]
+        return [lmm_scan(pg, basis, Y[:, 0], block=512)[0]]
+
+    cpu = run()
+    monkeypatch.setattr(jax, "default_backend", lambda: "gpu")
+    gpu = run()
+    for a, b in zip(cpu, gpu):
+        np.testing.assert_array_equal(a.beta, b.beta)
+        np.testing.assert_array_equal(a.se, b.se)
+        np.testing.assert_array_equal(a.pwald, b.pwald)

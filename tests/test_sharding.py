@@ -124,6 +124,51 @@ def test_production_grm_sharded(mesh8, rng):
     np.testing.assert_allclose(S8, S1, rtol=2e-3, atol=1e-6)
 
 
+@pytest.mark.parametrize("block,ndev,step", [
+    (2048, 4, 8192),  # every device takes the one-device block per step
+    (64, 8, 512),
+    (2048, None, 2048),  # no mesh: the block as given
+])
+def test_mesh_step_gives_every_device_the_one_device_block(block, ndev, step):
+    from types import SimpleNamespace
+
+    from janusx_tpu.parallel.mesh import mesh_step
+
+    mesh = None if ndev is None else SimpleNamespace(
+        devices=np.empty(ndev, object))
+    assert mesh_step(block, mesh) == step
+
+
+def test_sharded_paths_share_the_block_rule(mesh8, rng, monkeypatch):
+    """The sharded GRM and every sharded scan give each device `block`
+    SNP rows per step: the uploads' per-block SNP axis is block x 8."""
+    from janusx_tpu.core.spectral import eigh_grm
+    from janusx_tpu.models.fvlmm import fvlmm_scan
+    from janusx_tpu.models.grm import grm_from_packed
+    from janusx_tpu.models.lm import lm_scan
+    from janusx_tpu.models.lmm import lmm_scan
+    from janusx_tpu.utils import devcache
+
+    pg = _toy_pg(rng, m=1500)
+    basis = eigh_grm(grm_from_packed(pg, block=64), diag_ridge=1e-6)
+    y = rng.normal(size=pg.n)
+    shapes = []
+    upload = devcache.device_packed_blocks
+
+    def spy(pg_, shape, *a, **k):
+        shapes.append(shape)
+        return upload(pg_, shape, *a, **k)
+
+    monkeypatch.setattr(devcache, "device_packed_blocks", spy)
+    grm_from_packed(pg, block=64, mesh=mesh8)
+    lm_scan(pg, y, block=64, mesh=mesh8)
+    fvlmm_scan(pg, basis, y, block=64, mesh=mesh8)
+    lmm_scan(pg, basis, y, block=64, mesh=mesh8)
+    assert len(shapes) == 4
+    assert shapes[0][2] == 64 * 8  # GRM: (n_super, flush, step)
+    assert all(s[1] == 64 * 8 for s in shapes[1:])  # scans: (nblk, step)
+
+
 def test_production_scans_sharded(mesh8, rng):
     from janusx_tpu.core.spectral import eigh_grm
     from janusx_tpu.models.fvlmm import fvlmm_scan
@@ -139,7 +184,7 @@ def test_production_scans_sharded(mesh8, rng):
     y = rng.normal(size=n) + pg.centered()[3] * 0.4
 
     def close(a, b):
-        # f32 MXU grams reduce in different tilings across devices, so
+        # f32 grams reduce in different tilings across devices, so
         # agreement is at f32-gram noise level; -log10 p within the
         # project's 5e-3 parity tolerance
         np.testing.assert_allclose(b.beta, a.beta, rtol=2e-3, atol=1e-6, equal_nan=True)
@@ -154,8 +199,8 @@ def test_production_scans_sharded(mesh8, rng):
     f8, _ = fvlmm_scan(pg, basis, y, block=64, mesh=mesh8)
     close(f1, f8)
 
-    l1, n1 = lmm_scan(pg, basis, y, block=64, use_pallas=False)
-    l8, n8 = lmm_scan(pg, basis, y, block=64, use_pallas=False, mesh=mesh8)
+    l1, n1 = lmm_scan(pg, basis, y, block=64)
+    l8, n8 = lmm_scan(pg, basis, y, block=64, mesh=mesh8)
     assert n1.lbd == n8.lbd
     close(l1, l8)
 
@@ -380,7 +425,7 @@ def test_windowed_sharded_scan_chromosome_scale(mesh8, tmp_path):
 
 def test_grm_sharded_hlo_has_one_allreduce(mesh8, rng):
     """The compiled sharded-GRM program contains exactly ONE cross-device
-    reduction (the single psum over ICI the design promises)."""
+    reduction (the single psum the design promises)."""
     from janusx_tpu.models.grm import _grm_sharded
     from janusx_tpu.utils import devcache
 
@@ -587,7 +632,38 @@ def test_distributed_scan_single_process_equals_full(rng):
 
     basis = eigh_grm(grm_from_packed(pg), diag_ridge=1e-6)
     d2 = dist.distributed_scan(
-        pg, lambda sub: lmm_scan(sub, basis, y, use_pallas=False)[0])
-    ref2, _ = lmm_scan(pg, basis, y, use_pallas=False)
+        pg, lambda sub: lmm_scan(sub, basis, y)[0])
+    ref2, _ = lmm_scan(pg, basis, y)
     np.testing.assert_allclose(d2.beta, ref2.beta, rtol=0, atol=0,
                                equal_nan=True)
+
+
+def test_distributed_init_without_a_cluster_raises(monkeypatch):
+    """An explicit multi-process run never falls back to one process: with
+    no coordinator in the environment, initialization is an error."""
+    from janusx_tpu.parallel import distributed as dist
+
+    for k in ("JX_DIST_COORDINATOR", "JX_DIST_NPROCS", "JX_DIST_PROC_ID",
+              "JX_DIST_LOCAL_DEVICES"):
+        monkeypatch.delenv(k, raising=False)
+    with pytest.raises(ValueError, match="coordinator"):
+        dist.initialize_from_env()
+    with pytest.raises(ValueError, match="coordinator"):
+        dist.initialize(coordinator=None, num_processes=2, process_id=0)
+
+
+def test_all_reduce_lines_counts_an_async_pair_once():
+    """GPU HLO spells one all-reduce as a start/done pair whose names recur
+    in operands; CPU HLO as one synchronous op. Both count once."""
+    from janusx_tpu.parallel.mesh import all_reduce_lines
+
+    gpu = (
+        "%all-reduce-start = f64[8,8]{1,0} all-reduce-start(f64[8,8]{1,0} "
+        "%fusion), channel_id=1, replica_groups={{0,1,2,3}}, to_apply=%add\n"
+        "%all-reduce-done = f64[8,8]{1,0} all-reduce-done(f64[8,8]{1,0} "
+        "%all-reduce-start)\n"
+        "ROOT %copy = f64[8,8]{1,0} copy(%all-reduce-done)\n")
+    cpu = "%all-reduce = f64[8,8]{1,0} all-reduce(f64[8,8]{1,0} %x), to_apply=%add\n"
+    assert len(all_reduce_lines(gpu)) == 1
+    assert len(all_reduce_lines(cpu)) == 1
+    assert all_reduce_lines("ROOT %r = f64[8] add(%a, %b)\n") == []

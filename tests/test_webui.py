@@ -142,3 +142,71 @@ def test_render_sigsites_and_upload(ui):
     with pytest.raises(urllib.error.HTTPError) as e:
         _post(base + "/upload", {"name": "x", "content": content})
     assert e.value.code == 403
+
+
+def test_second_device_job_waits_for_the_card(tmp_path, monkeypatch):
+    """One job per card: with one card the second job queues until the
+    first has ended, and each job is pinned to the card it runs on."""
+    monkeypatch.setenv("JX_TPU_HISTORY_DB", str(tmp_path / "hist.db"))
+    from janusx_tpu.ui.server import UiState
+
+    state = UiState(str(tmp_path), cards=["0"])
+    a = state.submit("grm", "-h")
+    b = state.submit("grm", "-h")
+    assert (a.status, b.status) == ("running", "queued")
+    _wait_until(lambda: a.status != "running"
+                and b.status not in ("queued", "running"))
+    assert (a.status, b.status) == ("ok", "ok")
+    assert b.launched >= a.finished
+    c = state.submit("grm", "-h")
+    d = state.submit("grm", "-h")
+    state.cancel(d)  # a queued job is dropped, never launched
+    assert d.status == "failed" and d.proc is None
+    _wait_until(lambda: c.status != "running")
+    assert c.status == "ok"
+
+
+def _wait_until(done, tries: int = 240) -> None:
+    for _ in range(tries):
+        if done():
+            return
+        time.sleep(0.5)
+
+
+@pytest.mark.parametrize("cards,module", [(["0"], "sim"), ([], "grm")])
+def test_host_jobs_and_cardless_hosts_do_not_queue(tmp_path, monkeypatch,
+                                                   cards, module):
+    """A host-side module runs beside a device job on its card, and a host
+    without cards starts every job at once, unpinned."""
+    monkeypatch.setenv("JX_TPU_HISTORY_DB", str(tmp_path / "hist.db"))
+    from janusx_tpu.ui.server import UiState
+
+    state = UiState(str(tmp_path), cards=cards)
+    jobs = [state.submit("grm", "-h"),
+            state.submit(module, "-nind 30 -nsnp 50 -o a" if module == "sim"
+                         else "-h")]
+    assert [j.status for j in jobs] == ["running", "running"]
+    _wait_until(lambda: all(j.status != "running" for j in jobs)
+                and state._free == cards)
+    assert [j.status for j in jobs] == ["ok", "ok"]
+    assert state._free == cards
+
+
+def test_job_that_cannot_start_frees_its_card(tmp_path, monkeypatch):
+    """A launch failure marks the job failed and gives the card back, so
+    the next device job still runs."""
+    monkeypatch.setenv("JX_TPU_HISTORY_DB", str(tmp_path / "hist.db"))
+    from janusx_tpu.ui import server
+
+    def broken_popen(*a, **k):
+        raise OSError("no such interpreter")
+
+    state = server.UiState(str(tmp_path), cards=["0"])
+    with monkeypatch.context() as m:
+        m.setattr(server.subprocess, "Popen", broken_popen)
+        bad = state.submit("grm", "-h")
+    assert bad.status == "failed" and "no such interpreter" in bad.log_tail()
+    assert state._free == ["0"]
+    ok = state.submit("grm", "-h")
+    _wait_until(lambda: ok.status != "running" and state._free == ["0"])
+    assert ok.status == "ok" and state._free == ["0"]

@@ -98,8 +98,8 @@ def test_windowed_grm_and_scans_match(plink_files):
     np.testing.assert_allclose(r2.pwald, r1.pwald, rtol=1e-6)
 
     basis = eigh_grm(K1, diag_ridge=1e-6)
-    l1, n1 = lmm_scan(ram, basis, y, block=128, use_pallas=False)
-    l2, n2 = lmm_scan(wp, basis, y, block=128, use_pallas=False)
+    l1, n1 = lmm_scan(ram, basis, y, block=128)
+    l2, n2 = lmm_scan(wp, basis, y, block=128)
     assert n1.lbd == n2.lbd
     np.testing.assert_allclose(l2.beta, l1.beta, rtol=1e-6, equal_nan=True)
     np.testing.assert_allclose(l2.pwald, l1.pwald, rtol=1e-6)
